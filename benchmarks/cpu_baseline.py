@@ -22,7 +22,7 @@ replaces the estimate with a measurement on real hardware:
 
 The measured number is recorded in BASELINE.md and hard-coded (with
 provenance) as CPU_PIPELINE_BASELINE_EVALS_PER_SEC in bench.py, because
-bench.py itself runs on the TPU host.
+bench.py itself runs on the GPU host.
 
 Run: python benchmarks/cpu_baseline.py   (prints one JSON line)
 """

@@ -1,4 +1,4 @@
-"""End-to-end wall-clock of the complete Protassov LRT on one chip.
+"""End-to-end wall-clock of the complete Protassov LRT on one device.
 
 The headline production scenario (BASELINE.md): N = 5,000-point
 lightcurve, null = DRW, alternative = DRW + Lorentzian (QPO),
@@ -15,8 +15,8 @@ new, e.g.
 
 A warm-cache run (the default user experience after the first run on a
 machine) reuses every compiled program and is dominated by device
-execution.  Cross-process timings on a shared TPU pool vary +-2-3x;
-compare within one pool state.
+execution.  ``scenario()`` builds the seeded lightcurve and kernels;
+chip_smoke.py drives the same scenario.
 """
 from __future__ import annotations
 
@@ -29,6 +29,37 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def scenario(n_points: int = 5_000, seed: int = 0):
+    """(lightcurve, null DRW kernel, DRW + Lorentzian alternative).
+
+    The observed data are an exact realization of the NULL (DRW = OU)
+    process plus measurement noise, so both observed fits are well-posed
+    and converge the way the production scenario does (white-noise data
+    leaves the QPO parameters unidentifiable and forces the alt chain
+    to burn all max_steps)."""
+    from mind_the_gaps_tpu import GappyLightcurve
+    from mind_the_gaps_tpu.kernels import DampedRandomWalk, Lorentzian
+
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.uniform(2.0, 8.0, n_points))
+    S0, w0 = np.exp(1.0), np.exp(-3.0)
+    y = np.empty(n_points)
+    y[0] = rng.normal(0.0, np.sqrt(S0))
+    phi = np.exp(-w0 * np.diff(t))
+    innov = rng.normal(0.0, np.sqrt(S0 * (1.0 - phi**2)))
+    for i in range(1, n_points):
+        y[i] = phi[i - 1] * y[i - 1] + innov[i - 1]
+    dy = np.full(n_points, 0.3)
+    y = y + 10.0 + rng.normal(0.0, dy)
+    lc = GappyLightcurve(t, y, dy, exposures=1.0)
+
+    null_kernel = DampedRandomWalk(log_S0=1.0, log_omega0=-3.0, bounds=[(-5, 10), (-8, 2)])
+    alt_kernel = null_kernel + Lorentzian(
+        log_S0=-1.0, log_Q=2.0, log_omega0=-2.0, bounds=[(-8, 5), (0, 6), (-5, 0)]
+    )
+    return lc, null_kernel, alt_kernel
 
 
 def main():
@@ -47,32 +78,9 @@ def main():
 
     import jax
 
-    from mind_the_gaps_tpu import GappyLightcurve
-    from mind_the_gaps_tpu.kernels import DampedRandomWalk, Lorentzian
     from mind_the_gaps_tpu.lrt import protassov_lrt
 
-    rng = np.random.default_rng(0)
-    t = np.cumsum(rng.uniform(2.0, 8.0, args.n_points))
-    # observed data = an exact realization of the NULL (DRW = OU) process
-    # plus measurement noise, so both observed fits are well-posed and
-    # converge the way the production scenario does (white-noise data
-    # leaves the QPO parameters unidentifiable and forces the alt chain
-    # to burn all max_steps)
-    S0, w0 = np.exp(1.0), np.exp(-3.0)
-    y = np.empty(args.n_points)
-    y[0] = rng.normal(0.0, np.sqrt(S0))
-    phi = np.exp(-w0 * np.diff(t))
-    innov = rng.normal(0.0, np.sqrt(S0 * (1.0 - phi**2)))
-    for i in range(1, args.n_points):
-        y[i] = phi[i - 1] * y[i - 1] + innov[i - 1]
-    dy = np.full(args.n_points, 0.3)
-    y = y + 10.0 + rng.normal(0.0, dy)
-    lc = GappyLightcurve(t, y, dy, exposures=1.0)
-
-    null_kernel = DampedRandomWalk(log_S0=1.0, log_omega0=-3.0, bounds=[(-5, 10), (-8, 2)])
-    alt_kernel = null_kernel + Lorentzian(
-        log_S0=-1.0, log_Q=2.0, log_omega0=-2.0, bounds=[(-8, 5), (0, 6), (-5, 0)]
-    )
+    lc, null_kernel, alt_kernel = scenario(args.n_points)
 
     t0 = time.perf_counter()
     result = protassov_lrt(

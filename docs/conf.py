@@ -2,7 +2,7 @@
 
 Deliverable parity with the reference's Sphinx+MyST+autoapi docs build
 (reference docs/conf.py, pyproject.toml:42-50); the build itself runs in
-CI (.github/workflows/docs.yml), since the TPU sandbox image does not
+CI (.github/workflows/docs.yml), since the development image does not
 ship sphinx.
 """
 import os

@@ -3,7 +3,7 @@
 The reference ships five rendered Jupyter notebooks
 (/root/reference/docs/notebooks/: tutorial_ppp, tutorial_model_selection,
 celerite_variance, poisson_level, lomb_scargle_biases); this script
-produces the equivalents for the TPU-native rebuild — same storyline and
+produces the equivalents for this JAX rebuild — same storyline and
 conclusions, built on the batched device pipeline — executes them with
 nbclient at small-N tutorial settings, and writes the executed .ipynb
 (figures embedded) so the docs site renders them like the reference's.
@@ -72,7 +72,7 @@ end (the rebuild of the reference's `tutorial_ppp.ipynb`):
    observed $T$.
 
 Tutorial sizes are tiny (`nsims=32`); production runs use
-`nsims=10000` on a TPU."""),
+`nsims=10000` on a GPU."""),
         ("code", SETUP),
         ("code", '''\
 from mind_the_gaps_tpu import GappyLightcurve

@@ -9,9 +9,8 @@ COMPLETE ``protassov_lrt`` calls on independent null-true datasets —
 exactly what a user executes — and KS-tests the p-values against
 Uniform(0,1).
 
-Every pipeline program takes the data series as runtime operands
-(round 5), so all K experiments share one compiled program set — after
-the first experiment each complete LRT costs ~12-17 s on a v5e chip.
+Every pipeline program takes the data series as runtime operands, so
+all K experiments share one compiled program set.
 Run it as the release check after changes to the observed-fit path.
 
 ``--pdf lognormal`` runs the NON-GAUSSIAN pipeline end to end: the

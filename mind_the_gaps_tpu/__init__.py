@@ -1,13 +1,14 @@
-"""mind_the_gaps_tpu — TPU-native (quasi-)periodicity detection in
-irregularly-sampled astronomical lightcurves.
+"""mind_the_gaps_tpu — (quasi-)periodicity detection in irregularly-sampled
+astronomical lightcurves on a JAX accelerator.
 
 A ground-up JAX/XLA re-design of the capabilities of
 ``andresgur/mind_the_gaps`` (GP modelling with celerite-style kernels,
 TK95/E13 lightcurve simulation, ensemble MCMC, Protassov et al. 2002
-posterior-predictive likelihood-ratio tests), built TPU-first:
+posterior-predictive likelihood-ratio tests):
 
 - the celerite O(N) semiseparable Cholesky factorization is a pure-JAX
-  ``lax.scan`` / associative-scan kernel with autodiff support,
+  ``lax.scan`` / associative-scan kernel with autodiff support, plus a
+  Pallas-Triton GPU kernel for the batched likelihood (ops/),
 - the affine-invariant ensemble sampler is fully vectorized so
   (simulations x walkers) log-likelihoods evaluate as one batched kernel,
 - the Timmer & Koenig / Emmanoulopoulos simulators run as batched
@@ -30,21 +31,22 @@ if os.environ.get("MTG_TPU_X64", "1") != "0":
 
 # Persistent compilation cache: the production pipeline re-runs the same
 # few programs (observed-fit sampler, bootstrap runners) across
-# processes, and on a remote-compile TPU runtime each compile costs tens
-# of seconds (measured: a fresh-process derive_posteriors drops 42 s ->
-# 24 s with a warm cache).  Only set when the user hasn't configured a
-# cache; disable with MTG_TPU_NO_COMPILE_CACHE=1.
+# processes.  JAX_COMPILATION_CACHE_DIR, when set, is used as it is;
+# otherwise the cache lives at a fixed path inside the checkout
+# (CACHE_ROOT/jax/host-<ISA>, gitignored).  Disable with
+# MTG_TPU_NO_COMPILE_CACHE=1.
+CACHE_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".cache")
+
+
 def _cpuid_feature_words():
     """Raw CPUID feature leaves + XCR0, read directly from the hardware.
 
     LLVM's host-feature detection (what XLA:CPU embeds in AOT
-    executables) reads CPUID from userspace, NOT /proc/cpuinfo — and on
-    this pool two physical hosts present byte-identical cpuinfo (generic
+    executables) reads CPUID from userspace, NOT /proc/cpuinfo — and two
+    virtual machines can present byte-identical cpuinfo (generic
     hypervisor model string, filtered flag list) while differing in real
-    CPUID (one has AVX-512/AMX, one does not; observed 2026-08-19/20 as
-    cpu_aot_loader feature-mismatch warnings inside a single
-    cpuinfo-fingerprinted cache dir).  So the fingerprint must come from
-    the same source LLVM uses.  Queried leaves are exactly the
+    CPUID (one with AVX-512/AMX, one without).  So the fingerprint must
+    come from the same source LLVM uses.  Queried leaves are exactly the
     feature-relevant ones (1, 7.0-7.2, 0xD.0/1, 0x80000001,
     0x80000008) plus XCR0 via xgetbv (OS-enabled vector state gates
     AVX/AVX-512 in LLVM's detection); leaf 1 EBX is masked — its high
@@ -120,17 +122,17 @@ def _host_isa_fingerprint() -> str:
     directory written on one machine generation is reused on another).
     Partitioning the default cache directory by the hardware CPUID
     feature leaves (see ``_cpuid_feature_words`` — /proc/cpuinfo is NOT
-    a reliable basis on this pool) keeps homogeneous pools sharing a
-    cache while making cross-ISA reuse impossible.  TPU executables are
-    machine-independent, so the split only costs a re-warm when the
-    driver host's CPU generation changes.
+    a reliable basis) keeps homogeneous hosts sharing a cache while
+    making cross-ISA reuse impossible — JAX's cache key does not include
+    CPU features, and the host-CPU MAP fit compiles XLA:CPU programs.
+    The split only costs a re-warm when the host's CPU generation
+    changes.
 
     The basis also includes the CPU model name and core count, since
     XLA's codegen tuning follows the detected model.  NOTE the
     ``prefer-no-gather``/``prefer-no-scatter`` loader warnings are NOT
     evidence of a cross-host load: they fire on every XLA:CPU cache
-    load, same-host included (see ``_logfilter.py``) — round 4
-    misattributed them to fingerprint misses.
+    load, same-host included (see ``_logfilter.py``).
     """
     import platform
     import zlib
@@ -160,18 +162,15 @@ if (
     and not os.environ.get("JAX_COMPILATION_CACHE_DIR")
     and not jax.config.jax_compilation_cache_dir
 ):
-    _cache_root = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-        "mind_the_gaps_tpu", "jax",
-    )
+    _cache_root = os.path.join(CACHE_ROOT, "jax")
     _cache_dir = os.path.join(_cache_root, f"host-{_host_isa_fingerprint()}")
     try:
         os.makedirs(_cache_dir, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", _cache_dir)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        # prune sibling host-* dirs not touched in 14 days: the home
-        # directory outlives the (rotating) pool hosts, so dirs for dead
-        # CPU generations would otherwise accumulate ~100s of MB each
+        # prune sibling host-* dirs not touched in 14 days: a checkout
+        # moved between machines would otherwise accumulate one dir per
+        # CPU generation
         import shutil as _shutil
         import time as _time
 

@@ -160,7 +160,7 @@ def main(argv=None):
         p.add_argument("--seed", type=int, default=0)
         p.add_argument(
             "--fast", action="store_true", default=None,
-            help="force the f32 Pallas sampler (default: auto — on for TPU backends)",
+            help="force the f32 GPU-kernel sampler (default: on where the kernel runs, a GPU)",
         )
         p.add_argument(
             "--no-fast", dest="fast", action="store_false",

@@ -42,7 +42,7 @@ def build_native(force: bool = False) -> bool:
 
     out = _ext_path()
     src = os.path.join(_HERE, "_fastio.c")
-    if os.path.exists(out) and not force:
+    if not force and os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return True
     include = sysconfig.get_paths()["include"]
     cc = os.environ.get("CC", "cc")
@@ -66,7 +66,9 @@ def _get_native():
     if _build_attempted:
         return None
     _build_attempted = True
-    if not os.path.exists(_ext_path()) and not build_native():
+    # (re)build when missing or older than its source: a binary copied
+    # in from another checkout or machine is never trusted blindly
+    if not build_native():
         return None
     try:
         import importlib.util

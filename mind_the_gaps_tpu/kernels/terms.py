@@ -8,7 +8,7 @@ A celerite kernel is a sum of exponential-(co)sinusoid terms
 (tau = |t_i - t_j|), whose covariance matrices are semiseparable and admit
 an O(N) Cholesky factorization (Foreman-Mackey et al. 2017).
 
-Design notes (TPU-first):
+Design notes:
 - A ``Term`` instance is *static*: parameter names, coefficient widths
   (Jr real / Jc complex) and bounds are Python-level constants, so jitted
   functions specialize on the term structure.

@@ -1,6 +1,6 @@
 """Lightcurve containers and loaders.
 
-TPU-first data layer replacing reference mind_the_gaps/lightcurves/:
+Data layer replacing reference mind_the_gaps/lightcurves/:
 ``GappyLightcurve`` is an immutable container over plain arrays (host
 numpy for I/O-adjacent state; methods hand JAX device arrays to the
 compute layers), plus file-format loaders (Simple/Swift/Fermi CSV/QDP

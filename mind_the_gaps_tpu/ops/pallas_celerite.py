@@ -1,33 +1,32 @@
-"""Pallas TPU kernel for the batched celerite log-likelihood.
+"""Pallas-Triton GPU kernel for the batched celerite log-likelihood.
 
-The XLA while-loop version (solver/batched.py) loses most of the VPU to
-loop machinery: measured on a v5e chip at N=5k, B=16k (fetch-forced
-timing) the XLA scan does ~70k likelihood evals/s while this kernel does
-~440k (6x).  The whole recursion state — S (flattened R^2 x tile),
-W/f (R x tile), D/z and the Kahan accumulators — stays resident in VMEM
-scratch per batch tile across the entire time loop.
+XLA runs ``solver/batched.py``'s ``lax.scan`` over the N time steps as a
+device loop: at least one kernel launch per step, and no fusion across
+steps.  The recursion is serial in time but independent across the
+batch, so this kernel gives every batch lane (one likelihood) its own
+thread and runs the whole N-step loop inside ONE launch:
 
-Structure:
-- grid = (batch_tiles, time_blocks); the time axis is the *minor* grid
-  dimension, so consecutive time blocks of one batch tile run
-  back-to-back and the scratch state carries across them (TPU grid
-  iteration is sequential per core).  Time-blocking keeps the streamed
-  series blocks small enough for VMEM at any N.
-- data may be shared across the batch (y: (N,)) or per-group
-  (y: (G, N), B = G*repeats — the bootstrap layout); the per-lane
-  expansion of a group row happens in-kernel as a 0/1 selection matmul
-  at HIGHEST precision (jnp.repeat does not lower in Mosaic).
-- same math as solver/batched.py: local-phase rotation propagators and
-  Kahan-compensated accumulation.
+- grid over blocks of ``block`` lanes (a power of two, as Triton
+  requires); each block runs ``lax.fori_loop(1, N, ...)``;
+- the recursion state rides the loop carry (registers): the packed
+  symmetric S (R(R+1)/2 rows), W and f (R rows each), D, z, the
+  Kahan-compensated log-determinant and quadratic-form accumulators and
+  the running minimum pivot — about 25 values per lane at R=3, ~60 at
+  R=8; no shared memory;
+- ``t`` is shared; each lane gathers its own data column by group index
+  from the time-major (N, G) series (``y[n, lane // repeats]``), so
+  neighbouring lanes read neighbouring addresses;
+- the next step's data is loaded one iteration ahead (carried), so the
+  gather latency overlaps the current step's arithmetic.
 
-Mosaic constraints encoded here (discovered the hard way, see
-tests/test_pallas_kernel.py and the repo memory):
-- loop state in VMEM scratch refs, not fori_loop carries (3-D/bool
-  carries fail to legalize);
-- int32 loop bounds/carries, and pallas_call traced with x64 disabled
-  (global x64 makes grid scalars i64 -> 'func.return' legalization
-  failure); the f64 variant is CPU/interpret-only;
-- no `jnp.where(c, 1.0, 0.0)` (f64 vector under x64), no `rev`.
+Same math as solver/batched.py: local-phase rotation propagators
+P_n = exp(-c dt_n) Rot(d dt_n), the packed update S <- P (S + D w w^T)
+P^T, and Kahan sums.  float32 and float64 both lower (the card computes
+f64 natively); the f64 kernel matches the XLA scan to ~1e-12.
+
+``interpret`` runs the kernel through the Pallas interpreter on any
+backend — the tests' route; production callers never pass it.  Off a
+GPU a non-interpreted call fails at lowering.
 """
 from __future__ import annotations
 
@@ -37,396 +36,152 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-__all__ = ["pallas_log_likelihood"]
+__all__ = ["pallas_log_likelihood", "launch_config"]
 
-_LANES = 128
-_TIME_BLOCK = 256
+# Tests flip this (monkeypatch) to drive the production call sites
+# through the Pallas interpreter on the CPU; nothing else sets it.
+_INTERPRET = False
 
 
-def _make_kernel(Jr: int, Jc: int, N: int, n_blocks: int, tb: int, dtype, tile: int, grouped: bool, needs_mask: bool, g_tile: int):
+def launch_config(batch: int):
+    """(block, num_warps) for a ``batch``-lane call.
+
+    Each lane is one serial N-step chain, so a warp's time per step is
+    set by the recursion's dependent-latency chain, not by throughput:
+    one lane per thread, one warp per block, and blocks spread over the
+    SMs.  Small batches (a 32-walker observed fit half-updates 16 lanes)
+    take a single block of the next power of two."""
+    block = min(32, max(1, 1 << (max(batch, 1) - 1).bit_length()))
+    return block, 1
+
+
+def _make_kernel(Jr: int, Jc: int, N: int, mode: str, repeats: int, B: int, dtype, block: int):
+    """Kernel body for one static term structure and data layout.
+
+    ``mode``: "shared" (y/diag (N,)), "grouped" (time-major (N, G),
+    lane b reads column b // repeats) or "element" (time-major (N, B))."""
     R = Jr + 2 * Jc
-    _T = tile
-
-    def kernel(
-        dt_ref, y_ref, diag_ref,
-        ar_ref, cr_ref, ac_ref, bc_ref, cc_ref, dc_ref, mean_ref, jit_ref, e_ref,
-        out_ref,
-        S_scr, W_scr, f_scr, misc_scr, yx_scr, dx_scr,
-    ):
-        # misc_scr rows: 0=D, 1=z, 2=logdet, 3=logdet_c, 4=quad, 5=quad_c, 6=ok(1/0)
-        j = pl.program_id(1)  # time block
-
-        arT = ar_ref[:, :] if Jr else None
-        crT = cr_ref[:, :] if Jr else None
-        acT = ac_ref[:, :] if Jc else None
-        bcT = bc_ref[:, :] if Jc else None
-        ccT = cc_ref[:, :] if Jc else None
-        dcT = dc_ref[:, :] if Jc else None
-        mean = mean_ref[0, :]
-
-        # Per-block expansion of the data series into (tb, tile) scratch:
-        # rows then read as full vectors (dynamic scalar reads from the
-        # (tb, 1)-shaped series blocks are an order of magnitude slower).
-        # (tb, g_tile) -> (tb, tile) lanes in one MXU matmul per series;
-        # for shared data E is a row of ones (lane broadcast on the MXU —
-        # Mosaic's vector lane-broadcast from a 1-lane block is orders of
-        # magnitude slower)
-        def fill(dst, src):
-            if grouped and g_tile == _T:
-                # repeats == 1: every batch element has its own series
-                # row — the expansion is the identity, skip the matmul
-                dst[:, :] = src[:, :]
-            else:
-                dst[:, :] = jax.lax.dot_general(
-                    src[:, :], e_ref[:, :], (((1,), (0,)), ((), ())),
-                    precision=jax.lax.Precision.HIGHEST,
-                    preferred_element_type=dtype,
-                )
-
-        fill(yx_scr, y_ref)
-        fill(dx_scr, diag_ref)
-
-        def expand_row(ref, n, which):
-            """Data row -> per-lane (tile,) vector."""
-            return (yx_scr if which == 0 else dx_scr)[n, :]
-
-        k0 = jit_ref[0, :]  # per-element extra diagonal (jitter)
-        if Jr:
-            k0 = k0 + jnp.sum(arT, axis=0)
-        if Jc:
-            k0 = k0 + jnp.sum(acT, axis=0)
-
-        rows_u, rows_v = [], []
-        if Jr:
-            rows_u.append(arT)
-            rows_v.append(jnp.ones_like(arT))
-        if Jc:
-            z2 = jnp.zeros_like(acT)
-            o2 = jnp.ones_like(acT)
-            rows_u.append(jnp.concatenate([acT[:, None, :], bcT[:, None, :]], 1).reshape(2 * Jc, _T))
-            rows_v.append(jnp.concatenate([o2[:, None, :], z2[:, None, :]], 1).reshape(2 * Jc, _T))
-        u = jnp.concatenate(rows_u, 0) if len(rows_u) > 1 else rows_u[0]
-        v = jnp.concatenate(rows_v, 0) if len(rows_v) > 1 else rows_v[0]
-
-        def apply_P(x, er, ecc, ecs):
-            outs = []
-            if Jr:
-                outs.append(er * x[:Jr])
-            if Jc:
-                xc = x[Jr:].reshape(Jc, 2, *x.shape[1:])
-                x1, x2 = xc[:, 0], xc[:, 1]
-                y1 = ecc * x1 - ecs * x2
-                y2 = ecs * x1 + ecc * x2
-                outs.append(jnp.concatenate([y1[:, None], y2[:, None]], 1).reshape(2 * Jc, *x.shape[1:]))
-            return jnp.concatenate(outs, 0) if len(outs) > 1 else outs[0]
-
-        # ---- time block 0: initialize scratch from the first sample --- #
-        @pl.when(j == 0)
-        def _init():
-            r0 = expand_row(y_ref, 0, 0) - mean
-            A0 = expand_row(diag_ref, 0, 1) + k0
-            S_scr[:, :] = jnp.zeros((R * R, _T), dtype=dtype)
-            W_scr[:, :] = v / A0
-            f_scr[:, :] = jnp.zeros((R, _T), dtype=dtype)
-            misc_scr[0, :] = A0
-            misc_scr[1, :] = r0
-            misc_scr[2, :] = jnp.log(jnp.abs(A0))
-            misc_scr[3, :] = jnp.zeros_like(A0)
-            misc_scr[4, :] = r0 * r0 / A0
-            misc_scr[5, :] = jnp.zeros_like(A0)
-            misc_scr[6, :] = jnp.where(A0 > 0.0, jnp.ones_like(A0), jnp.zeros_like(A0))
-
-        def body(n, _):
-            # n is the row inside this time block; global index j*tb + n
-            valid = (j * tb + n) < N if needs_mask else True
-
-            dt_n = dt_ref[n, 0]
-            y_n = expand_row(y_ref, n, 0)
-            d_n = expand_row(diag_ref, n, 1)
-            er = jnp.exp(-crT * dt_n) if Jr else None
-            if Jc:
-                ecd = jnp.exp(-ccT * dt_n)
-                arg = dcT * dt_n
-                ecc = ecd * jnp.cos(arg)
-                ecs = ecd * jnp.sin(arg)
-            else:
-                ecc = ecs = None
-            rn = y_n - mean
-            An = d_n + k0
-
-            S = S_scr[:, :].reshape(R, R, _T)
-            D_prev = misc_scr[0, :]
-            z_prev = misc_scr[1, :]
-            W_prev = W_scr[:, :]
-            f_prev = f_scr[:, :]
-
-            S_new = S + D_prev * W_prev[:, None, :] * W_prev[None, :, :]
-            er_w = None if er is None else er[:, None, :]
-            ecc_w = None if ecc is None else ecc[:, None, :]
-            ecs_w = None if ecs is None else ecs[:, None, :]
-            S_new = apply_P(S_new, er_w, ecc_w, ecs_w)
-            S_new = jnp.swapaxes(apply_P(jnp.swapaxes(S_new, 0, 1), er_w, ecc_w, ecs_w), 0, 1)
-
-            Su = jnp.sum(S_new * u[None, :, :], axis=1)
-            D = An - jnp.sum(u * Su, axis=0)
-            W = (v - Su) / D
-            f = apply_P(f_prev + W_prev * z_prev, er, ecc, ecs)
-            z = rn - jnp.sum(u * f, axis=0)
-
-            logdet, lc_ = misc_scr[2, :], misc_scr[3, :]
-            quad, qc_ = misc_scr[4, :], misc_scr[5, :]
-            x1 = jnp.log(jnp.abs(D)) - lc_
-            t1 = logdet + x1
-            lc_n = (t1 - logdet) - x1
-            x2 = z * z / D - qc_
-            t2 = quad + x2
-            qc_n = (t2 - quad) - x2
-
-            def _write():
-                S_scr[:, :] = S_new.reshape(R * R, _T)
-                W_scr[:, :] = W
-                f_scr[:, :] = f
-                misc_scr[0, :] = D
-                misc_scr[1, :] = z
-                misc_scr[2, :] = t1
-                misc_scr[3, :] = lc_n
-                misc_scr[4, :] = t2
-                misc_scr[5, :] = qc_n
-                misc_scr[6, :] = misc_scr[6, :] * jnp.where(D > 0.0, jnp.ones_like(D), jnp.zeros_like(D))
-
-            if needs_mask:
-                # padded rows (n_global >= N) are no-ops
-                pl.when(valid)(_write)
-            else:
-                _write()
-
-            return jnp.int32(0)
-
-        start = jnp.where(j == jnp.int32(0), jnp.int32(1), jnp.int32(0))
-        jax.lax.fori_loop(start, jnp.int32(tb), body, jnp.int32(0))
-
-        # write the (running) result; the last time block's write wins
-        ll = -0.5 * (misc_scr[4, :] + misc_scr[2, :] + N * math.log(2.0 * math.pi))
-        out_ref[0, :] = jnp.where(misc_scr[6, :] > 0.5, ll, -jnp.inf)
-
-    return kernel
-
-
-def _make_kernel_sym(Jr: int, Jc: int, N: int, n_blocks: int, tb: int, dtype, tile: int, grouped: bool, needs_mask: bool, g_tile: int, unroll: int = 4, carry: bool = True):
-    """Packed-symmetric variant of the kernel body: S is symmetric, so
-    only its R(R+1)/2 unique entries are stored (one 8-sublane tile
-    group at R=3 instead of two) and the update computes each output
-    entry with closed-form block formulas instead of the full outer
-    product + two dense P-rotations.  TPU-measured at R=3 (DRW+QPO,
-    N=5k, B=64k): 1.05M evals/s vs 504k for the dense-S body (2.09x),
-    max |diff| 2e-3 (round-3 experiment).
-
-    Round 4 (see benchmarks/experiments/) restructured the serial
-    time loop, 1.41M -> 1.97M evals/s on the same problem:
-    - the per-row propagators (exp/cos/sin of the celerite recursion)
-      plus the residual r = y - mean and diagonal A = diag + k0 are
-      precomputed for the WHOLE time block as 2-D (tb, tile) vector ops
-      right after the data fill — the dependency-chained body becomes
-      pure mul-adds and row loads (+16% alone);
-    - the fori upper bound is the block's true row count (the padded
-      tail rows of a ragged N simply aren't executed) instead of a
-      per-row pl.when mask (+16%);
-    - the body is unrolled ``unroll`` time steps per fori iteration.
-
-    The per-entry rows are generated by trace-time Python loops over the
-    static block structure (real rows scale, complex pairs rotate), so
-    any (Jr, Jc) lowers to straight row-vector arithmetic.
-    """
-    R = Jr + 2 * Jc
-    nS = R * (R + 1) // 2
-    _T = tile
-
     pidx = {}
-    _k = 0
-    for _i in range(R):
-        for _j in range(_i, R):
-            pidx[(_i, _j)] = _k
-            _k += 1
+    for i in range(R):
+        for j in range(i, R):
+            pidx[(i, j)] = len(pidx)
+    nS = len(pidx)
 
     def sidx(i, j):
         return pidx[(i, j)] if i <= j else pidx[(j, i)]
 
-    # static row structure: ('r', term) for real rows, ('c', pair, 0/1)
-    row_kind = [("r", i) for i in range(Jr)] + [
-        ("c", k, p) for k in range(Jc) for p in (0, 1)
-    ]
+    # static row structure: ("r", term) real rows, ("c", pair, 0/1) complex
+    row_kind = [("r", i) for i in range(Jr)] + [("c", k, p) for k in range(Jc) for p in (0, 1)]
+    n_coef = 2 * Jr + 4 * Jc
+    log2pi = math.log(2.0 * math.pi)
 
-    def kernel(
-        dtw_ref, y_ref, diag_ref,
-        ar_ref, cr_ref, ac_ref, bc_ref, cc_ref, dc_ref, mean_ref, jit_ref, e_ref,
-        out_ref,
-        S_scr, W_scr, f_scr, misc_scr, r_scr, A_scr, prop_scr,
-    ):
-        # misc rows: 0=D, 1=z, 2=logdet, 3=logdet_c, 4=quad, 5=quad_c, 6=ok
-        j = pl.program_id(1)
+    def kernel(dt_ref, y_ref, d_ref, *refs):
+        coef_refs = refs[:n_coef]
+        mean_ref, jit_ref, out_ref = refs[n_coef:]
+        ar = [coef_refs[i][...] for i in range(Jr)]
+        cr = [coef_refs[Jr + i][...] for i in range(Jr)]
+        o = 2 * Jr
+        ac = [coef_refs[o + k][...] for k in range(Jc)]
+        bc = [coef_refs[o + Jc + k][...] for k in range(Jc)]
+        cc = [coef_refs[o + 2 * Jc + k][...] for k in range(Jc)]
+        dc = [coef_refs[o + 3 * Jc + k][...] for k in range(Jc)]
+        mean = mean_ref[...]
 
-        ar_rows = [ar_ref[i, :] for i in range(Jr)]
-        cr_rows = [cr_ref[i, :] for i in range(Jr)]
-        ac_rows = [ac_ref[i, :] for i in range(Jc)]
-        bc_rows = [bc_ref[i, :] for i in range(Jc)]
-        cc_rows = [cc_ref[i, :] for i in range(Jc)]
-        dc_rows = [dc_ref[i, :] for i in range(Jc)]
-        mean = mean_ref[0, :]
+        if mode == "shared":
+            col = None
+        else:
+            lane = pl.program_id(0) * block + jnp.arange(block, dtype=jnp.int32)
+            lane = jnp.minimum(lane, B - 1)  # padded lanes re-read the last column
+            col = lane // repeats if mode == "grouped" else lane
 
-        identity_fill = grouped and g_tile == _T
-
-        def expand(src):
-            if identity_fill:
-                return src[:, :]
-            return jax.lax.dot_general(
-                src[:, :], e_ref[:, :], (((1,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=dtype,
-            )
-
-        k0 = jit_ref[0, :]
-        for a in ar_rows:
-            k0 = k0 + a
-        for a in ac_rows:
-            k0 = k0 + a
-
-        # u = [ar..., (ac, bc)...], v = [1..., (1, 0)...]
-        u = ar_rows + [x for k in range(Jc) for x in (ac_rows[k], bc_rows[k])]
-        ones = jnp.ones((_T,), dtype=dtype)
-        zeros = jnp.zeros((_T,), dtype=dtype)
-        v = [ones] * Jr + [x for _ in range(Jc) for x in (ones, zeros)]
-
-        # ---- whole-block precompute: 2-D ops outside the serial loop --
-        r_scr[:, :] = expand(y_ref) - mean[None, :]
-        A_scr[:, :] = expand(diag_ref) + k0[None, :]
-        dtw = expand(dtw_ref)
-        for i in range(Jr):
-            prop_scr[i * tb : (i + 1) * tb, :] = jnp.exp(-dtw * cr_rows[i][None, :])
-        for k in range(Jc):
-            o = (Jr + 2 * k) * tb
-            ecd = jnp.exp(-dtw * cc_rows[k][None, :])
-            arg = dtw * dc_rows[k][None, :]
-            prop_scr[o : o + tb, :] = ecd * jnp.cos(arg)
-            prop_scr[o + tb : o + 2 * tb, :] = ecd * jnp.sin(arg)
-
-        @pl.when(j == 0)
-        def _init():
-            r0 = r_scr[0, :]
-            A0 = A_scr[0, :]
-            S_scr[:, :] = jnp.zeros((nS, _T), dtype=dtype)
-            for i in range(R):
-                W_scr[i, :] = v[i] / A0
-            f_scr[:, :] = jnp.zeros((R, _T), dtype=dtype)
-            misc_scr[0, :] = A0
-            misc_scr[1, :] = r0
-            misc_scr[2, :] = jnp.log(jnp.abs(A0))
-            misc_scr[3, :] = jnp.zeros_like(A0)
-            misc_scr[4, :] = r0 * r0 / A0
-            misc_scr[5, :] = jnp.zeros_like(A0)
-            misc_scr[6, :] = jnp.where(A0 > 0.0, jnp.ones_like(A0), jnp.zeros_like(A0))
-
-        def step(n, st=None):
-            """One time step.  ``st=None``: state lives in scratch (the
-            write-back form).  ``st`` a tuple: state rides the fori
-            carry — it stays in vector registers across iterations and
-            scratch is touched only at block boundaries (measured +8%
-            at R=3; see the wrapper's carry heuristic)."""
-            er = [prop_scr[i * tb + n, :] for i in range(Jr)]
-            Cv = [prop_scr[(Jr + 2 * k) * tb + n, :] for k in range(Jc)]
-            Sv = [prop_scr[(Jr + 2 * k + 1) * tb + n, :] for k in range(Jc)]
-            rn = r_scr[n, :]
-            An = A_scr[n, :]
-
-            if st is None:
-                D_prev = misc_scr[0, :]
-                z_prev = misc_scr[1, :]
-                W = [W_scr[i, :] for i in range(R)]
-                f = [f_scr[i, :] for i in range(R)]
-                s_prev = [S_scr[kk, :] for kk in range(nS)]
-                logdet, lc_ = misc_scr[2, :], misc_scr[3, :]
-                quad, qc_ = misc_scr[4, :], misc_scr[5, :]
-                okp = misc_scr[6, :]
+        def data(n):
+            """(dt_n, r_n, diag_n) for step n; r/diag are (block,) rows."""
+            if col is None:
+                y_n = jnp.broadcast_to(y_ref[n], (block,))
+                d_n = jnp.broadcast_to(d_ref[n], (block,))
             else:
-                s_prev = list(st[0:nS])
-                W = list(st[nS : nS + R])
-                f = list(st[nS + R : nS + 2 * R])
-                (D_prev, z_prev, logdet, lc_, quad, qc_, okp) = st[nS + 2 * R :]
+                y_n = y_ref[n, col]
+                d_n = d_ref[n, col]
+            return dt_ref[n], y_n - mean, d_n
 
-            # M = S + D_prev W W^T (packed)
-            m = {}
-            for i in range(R):
-                for jj in range(i, R):
-                    m[(i, jj)] = s_prev[sidx(i, jj)] + D_prev * W[i] * W[jj]
+        k0 = jit_ref[...]
+        for a in ar + ac:
+            k0 = k0 + a
+        u = ar + [x for k in range(Jc) for x in (ac[k], bc[k])]
+        one = jnp.ones((block,), dtype)
+        zero = jnp.zeros((block,), dtype)
+        v = [one] * Jr + [x for _ in range(Jc) for x in (one, zero)]
 
-            def M(i, jj):
-                return m[(i, jj)] if i <= jj else m[(jj, i)]
+        _, r0, d0 = data(0)
+        A0 = d0 + k0
+        inv0 = 1.0 / A0
+        st0 = (
+            (zero,) * nS
+            + tuple(vi * inv0 for vi in v)  # W
+            + (zero,) * R  # f
+            + (A0, r0, jnp.log(jnp.abs(A0)), zero, r0 * r0 * inv0, zero, A0)
+        )
+        nxt0 = data(jnp.int32(1)) if N > 1 else data(0)
 
-            # T = P M, computed lazily per entry (memoized; P block-diag)
-            memoT = {}
+        def step(n, carry):
+            st, (dt_n, rn, dn) = carry
+            # prefetch step n+1 (clamped on the last step)
+            nxt = data(jnp.minimum(n + 1, N - 1))
+            s_prev = st[:nS]
+            W = st[nS : nS + R]
+            f = st[nS + R : nS + 2 * R]
+            D_prev, z_prev, logdet, lc_, quad, qc_, dmin = st[nS + 2 * R :]
 
-            def T(i, jj):
-                if (i, jj) in memoT:
-                    return memoT[(i, jj)]
+            er = [jnp.exp(-cr[i] * dt_n) for i in range(Jr)]
+            Cv, Sv = [], []
+            for k in range(Jc):
+                e = jnp.exp(-cc[k] * dt_n)
+                arg = dc[k] * dt_n
+                Cv.append(e * jnp.cos(arg))
+                Sv.append(e * jnp.sin(arg))
+
+            def rot(i, get):
+                """Row i of P @ x for a column accessor get(row)."""
                 kind = row_kind[i]
                 if kind[0] == "r":
-                    val = er[kind[1]] * M(i, jj)
-                else:
-                    k, p = kind[1], kind[2]
-                    a = Jr + 2 * k
-                    if p == 0:
-                        val = Cv[k] * M(a, jj) - Sv[k] * M(a + 1, jj)
-                    else:
-                        val = Sv[k] * M(a, jj) + Cv[k] * M(a + 1, jj)
-                memoT[(i, jj)] = val
-                return val
+                    return er[kind[1]] * get(i)
+                k, p = kind[1], kind[2]
+                a = Jr + 2 * k
+                if p == 0:
+                    return Cv[k] * get(a) - Sv[k] * get(a + 1)
+                return Sv[k] * get(a) + Cv[k] * get(a + 1)
 
-            # S' = T P^T, only the packed upper triangle
+            # M = S + D_prev W W^T (packed), T = P M, S' = T P^T (upper)
+            m = {}
+            for i in range(R):
+                for j in range(i, R):
+                    m[(i, j)] = s_prev[pidx[(i, j)]] + D_prev * W[i] * W[j]
+            T = {}
+            for i in range(R):
+                for j in range(R):
+                    T[(i, j)] = rot(i, lambda q, j=j: m[(q, j)] if q <= j else m[(j, q)])
             s_new = [None] * nS
             for i in range(R):
-                for jj in range(i, R):
-                    kind = row_kind[jj]
-                    if kind[0] == "r":
-                        s_new[pidx[(i, jj)]] = T(i, jj) * er[kind[1]]
-                    else:
-                        k, p = kind[1], kind[2]
-                        a = Jr + 2 * k
-                        if p == 0:
-                            s_new[pidx[(i, jj)]] = Cv[k] * T(i, a) - Sv[k] * T(i, a + 1)
-                        else:
-                            s_new[pidx[(i, jj)]] = Sv[k] * T(i, a) + Cv[k] * T(i, a + 1)
-
-            def S_new(i, jj):
-                return s_new[sidx(i, jj)]
+                for j in range(i, R):
+                    s_new[pidx[(i, j)]] = rot(j, lambda q, i=i: T[(i, q)])
 
             Su = []
             for i in range(R):
-                acc = S_new(i, 0) * u[0]
-                for jj in range(1, R):
-                    acc = acc + S_new(i, jj) * u[jj]
+                acc = s_new[sidx(i, 0)] * u[0]
+                for j in range(1, R):
+                    acc = acc + s_new[sidx(i, j)] * u[j]
                 Su.append(acc)
             uSu = Su[0] * u[0]
             for i in range(1, R):
                 uSu = uSu + Su[i] * u[i]
-            D = An - uSu
+            D = dn + k0 - uSu
             Dinv = 1.0 / D
             W_new = [(v[i] - Su[i]) * Dinv for i in range(R)]
 
-            # f' = P (f + W z)
             g = [f[i] + W[i] * z_prev for i in range(R)]
-            f_new = []
-            for i in range(R):
-                kind = row_kind[i]
-                if kind[0] == "r":
-                    f_new.append(er[kind[1]] * g[i])
-                else:
-                    k, p = kind[1], kind[2]
-                    a = Jr + 2 * k
-                    if p == 0:
-                        f_new.append(Cv[k] * g[a] - Sv[k] * g[a + 1])
-                    else:
-                        f_new.append(Sv[k] * g[a] + Cv[k] * g[a + 1])
+            f_new = [rot(i, lambda q: g[q]) for i in range(R)]
             uf = u[0] * f_new[0]
             for i in range(1, R):
                 uf = uf + u[i] * f_new[i]
@@ -434,383 +189,150 @@ def _make_kernel_sym(Jr: int, Jc: int, N: int, n_blocks: int, tb: int, dtype, ti
 
             x1 = jnp.log(jnp.abs(D)) - lc_
             t1 = logdet + x1
-            lc_n = (t1 - logdet) - x1
             x2 = z * z * Dinv - qc_
             t2 = quad + x2
-            qc_n = (t2 - quad) - x2
-            ok_n = okp * jnp.where(D > 0.0, jnp.ones_like(D), jnp.zeros_like(D))
-
-            if st is not None:
-                return tuple(s_new) + tuple(W_new) + tuple(f_new) + (
-                    D, z, t1, lc_n, t2, qc_n, ok_n,
-                )
-
-            for kk in range(nS):
-                S_scr[kk, :] = s_new[kk]
-            for i in range(R):
-                W_scr[i, :] = W_new[i]
-                f_scr[i, :] = f_new[i]
-            misc_scr[0, :] = D
-            misc_scr[1, :] = z
-            misc_scr[2, :] = t1
-            misc_scr[3, :] = lc_n
-            misc_scr[4, :] = t2
-            misc_scr[5, :] = qc_n
-            misc_scr[6, :] = ok_n
-
-        # dynamic trip count: the last time block of a ragged N runs only
-        # its true rows — no per-row masking in the dependency chain
-        n_hi = jnp.minimum(jnp.int32(tb), jnp.int32(N) - j * jnp.int32(tb))
-        start = jnp.where(j == jnp.int32(0), jnp.int32(1), jnp.int32(0))
-
-        if carry:
-            st0 = tuple(S_scr[kk, :] for kk in range(nS)) + tuple(
-                W_scr[i, :] for i in range(R)
-            ) + tuple(f_scr[i, :] for i in range(R)) + tuple(
-                misc_scr[q, :] for q in range(7)
+            st = (
+                tuple(s_new) + tuple(W_new) + tuple(f_new)
+                + (D, z, t1, (t1 - logdet) - x1, t2, (t2 - quad) - x2, jnp.minimum(dmin, D))
             )
-            if unroll > 1:
-                def body_u(i, s):
-                    n = start + unroll * i
-                    for q in range(unroll):
-                        s = step(n + q, s)
-                    return s
+            return st, nxt
 
-                n_grp = (n_hi - start) // unroll
-                st = jax.lax.fori_loop(jnp.int32(0), n_grp, body_u, st0)
-                st = jax.lax.fori_loop(start + unroll * n_grp, n_hi, step, st)
-            else:
-                st = jax.lax.fori_loop(start, n_hi, step, st0)
-            for kk in range(nS):
-                S_scr[kk, :] = st[kk]
-            for i in range(R):
-                W_scr[i, :] = st[nS + i]
-                f_scr[i, :] = st[nS + R + i]
-            for q in range(7):
-                misc_scr[q, :] = st[nS + 2 * R + q]
-        elif unroll > 1:
-            def body_u(i, _):
-                n = start + unroll * i
-                for q in range(unroll):
-                    step(n + q)
-                return jnp.int32(0)
-
-            n_grp = (n_hi - start) // unroll
-            jax.lax.fori_loop(jnp.int32(0), n_grp, body_u, jnp.int32(0))
-
-            def body_tail(n, _):
-                step(n)
-                return jnp.int32(0)
-
-            jax.lax.fori_loop(start + unroll * n_grp, n_hi, body_tail, jnp.int32(0))
-        else:
-            def body(n, _):
-                step(n)
-                return jnp.int32(0)
-
-            jax.lax.fori_loop(start, n_hi, body, jnp.int32(0))
-
-        ll = -0.5 * (misc_scr[4, :] + misc_scr[2, :] + N * math.log(2.0 * math.pi))
-        out_ref[0, :] = jnp.where(misc_scr[6, :] > 0.5, ll, -jnp.inf)
+        st, _ = jax.lax.fori_loop(jnp.int32(1), jnp.int32(N), step, (st0, nxt0))
+        logdet, quad, dmin = st[nS + 2 * R + 2], st[nS + 2 * R + 4], st[-1]
+        ll = -0.5 * (quad + logdet + N * log2pi)
+        # D <= 0 (or NaN) anywhere: K is not positive definite
+        out_ref[...] = jnp.where(dmin > 0.0, ll, -jnp.inf)
 
     return kernel
 
 
-@partial(jax.jit, static_argnames=("interpret", "tile", "repeats", "time_block", "sym", "unroll"))
 def pallas_log_likelihood(
-    coeffs, t, y, diag, mean=None, interpret: bool = False, tile: int = 2048,
-    repeats: int = 1, extra_diag=None, time_block: int = _TIME_BLOCK,
-    sym: bool = True, unroll: int = 4,
+    coeffs, t, y, diag, mean=None, repeats: int = 1, extra_diag=None,
+    mesh=None, interpret=None,
 ):
-    """Batched log N(y | mean, K(theta_b)) via the Pallas kernel.
+    """Batched log N(y | mean, K(theta_b)) through the GPU kernel.
 
-    coeffs: Coefficients with leading batch dim B (B % 128 == 0).
-    y/diag: shared (N,) when repeats == 1, or per-group (G, N) with
-    B = G*repeats (element b uses group b // repeats).  A 2-D y with
-    repeats == 1 means G == B: every batch element has its OWN series —
-    the per-walker-residual layout used when the GP mean model is fitted
-    (each walker subtracts its own mean curve before the solve).
-    mean / extra_diag: optional per-element (B,) vectors.
-    float32 recommended on TPU (the f64 variant is CPU/interpret-only).
-    ``sym`` (default): the packed-symmetric-S kernel body with
-    whole-block propagator precompute, a dynamic loop trip count and
-    ``unroll``-step body unrolling (1.97M evals/s at R=3, N=5k on a v5e
-    chip vs 504k for the dense-S body); sym=False keeps the dense body
-    for comparison.
+    Same contract as ``solver.batched.batched_log_likelihood``:
+    coeffs with leading batch dim B (their dtype selects the precision);
+    y/diag shared (N,), per-group (G, N) with B = G*repeats, or
+    per-element (B, N); optional per-element ``mean`` and
+    ``extra_diag`` (B,).  Returns (B,) log-likelihoods, -inf where
+    K(theta_b) is not positive definite.
+
+    ``mesh``: split the batch over a device mesh with ``shard_map`` —
+    a ``pallas_call`` is opaque to XLA's SPMD partitioner, which would
+    otherwise gather a batch-sharded input and run the whole batch on
+    every device.  Grouped data needs G divisible by the mesh size;
+    shared and per-element batches are edge-padded to a multiple.
     """
+    if interpret is None:
+        interpret = _INTERPRET
+    run = partial(_pallas_ll, repeats=repeats, interpret=bool(interpret))
+    B = coeffs[0].shape[0]
+    dtype = coeffs[0].dtype
+    mean = jnp.zeros((B,), dtype) if mean is None else jnp.broadcast_to(jnp.asarray(mean, dtype), (B,))
+    extra_diag = (
+        jnp.zeros((B,), dtype) if extra_diag is None
+        else jnp.broadcast_to(jnp.asarray(extra_diag, dtype), (B,))
+    )
+    if mesh is None or mesh.size == 1:
+        return run(coeffs, t, y, diag, mean, extra_diag)
+
+    from jax.sharding import PartitionSpec as P
+
+    ax = tuple(mesh.axis_names)
+    n = mesh.size
+    y = jnp.asarray(y)
+    diag = jnp.asarray(diag)
+    rows = [a.shape[0] for a in (y, diag) if a.ndim == 2]
+    grouped = bool(rows) and rows[0] != B
+    if grouped:
+        G = rows[0]
+        if G % n:
+            raise ValueError(f"grouped data: {G} groups do not split over {n} devices")
+        pad = 0
+    else:
+        pad = (-B) % n
+
+    def edge(x):
+        x = jnp.asarray(x)
+        return jnp.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1), mode="edge") if pad else x
+
+    coeffs = jax.tree.map(edge, tuple(coeffs))
+    mean, extra_diag = edge(mean), edge(extra_diag)
+    if not grouped:
+        y = edge(y) if y.ndim == 2 else y
+        diag = edge(diag) if diag.ndim == 2 else diag
+    batch = P(ax)
+    out = jax.shard_map(
+        run,
+        mesh=mesh,
+        in_specs=(
+            jax.tree.map(lambda _: batch, coeffs), P(),
+            batch if y.ndim == 2 else P(), batch if diag.ndim == 2 else P(),
+            batch, batch,
+        ),
+        out_specs=batch,
+        check_vma=False,
+    )(coeffs, t, y, diag, mean, extra_diag)
+    return out[:B]
+
+
+@partial(jax.jit, static_argnames=("repeats", "interpret"))
+def _pallas_ll(coeffs, t, y, diag, mean, extra_diag, *, repeats, interpret):
     ar, cr, ac, bc, cc, dc = coeffs
     B = ar.shape[0]
-    if B % _LANES:
-        raise ValueError(f"batch must be a multiple of {_LANES}")
     dtype = ar.dtype
     Jr, Jc = ar.shape[1], ac.shape[1]
-    R = Jr + 2 * Jc
-    # Multi-term kernels prefer a smaller batch tile: the state grows as
-    # R^2/2 rows, and v5e-measured sweeps at N=10k show tile=1024
-    # beating tile=2048 once R >= 7 (R=7: 477 vs 439 k evals/s; R=8:
-    # 429 vs 355) while R=3 strongly prefers 2048 (2.1M vs 0.96M at
-    # 1024, round 3) — ``tile`` is the upper preference, so cap it for
-    # large-R kernels (also restores the vreg-carry form at R <= 6,
-    # whose n_carry fits the register file only at tile <= 1024).
-    if sym and R >= 5:
-        tile = min(tile, 1024)
-    per_element = repeats == 1 and jnp.ndim(y) == 2
-    if per_element:
-        if jnp.asarray(y).shape[0] != B:
-            raise ValueError("per-element series (2-D y with repeats=1) needs y.shape[0] == B")
-        if jnp.ndim(diag) == 1:
-            diag = jnp.broadcast_to(jnp.asarray(diag, dtype=dtype)[None, :], jnp.asarray(y).shape)
-    if repeats > 1 and jnp.ndim(y) == 2 and jnp.ndim(diag) == 1:
-        # a shared 1-D diag with grouped series: broadcast to (G, N) —
-        # feeding it through the (G, N) padding path as-is would build a
-        # nonsense (N, n_pad) operand that Mosaic rejects at lowering
-        diag = jnp.broadcast_to(jnp.asarray(diag, dtype=dtype)[None, :], jnp.asarray(y).shape)
-    grouped = repeats > 1 or per_element
-
-    if not grouped:
-        # Route shared data through the grouped path: Mosaic vector ops
-        # on 1-lane-wide operands (broadcast or K=1 matmul from an (N,1)
-        # block) are pathologically slow, so replicate the series into
-        # >=128 identical group columns and use the same wide-layout
-        # expansion matmul as the bootstrap case.
-        repeats = max(tile // _LANES, 1)
-        while B % repeats:
-            repeats //= 2
-        if repeats > 1:
-            g = B // repeats
-            y = jnp.broadcast_to(jnp.asarray(y, dtype=dtype)[None, :], (g, jnp.asarray(y).shape[0]))
-            diag = jnp.broadcast_to(jnp.asarray(diag, dtype=dtype)[None, :], (g, jnp.asarray(diag).shape[0]))
-            grouped = True
-
-    G = jnp.asarray(y).shape[0] if grouped else 0
-    R_state = (R * (R + 1)) // 2 if sym else R * R
-
-    def _tile_ok(tl):
-        if tl < 1 or B % tl:
-            return False
-        if not grouped:
-            return True
-        if tl % repeats:
-            return False
-        gt = tl // repeats
-        # Mosaic block constraint: trailing block dim divisible by 128
-        # or equal to the full array dimension
-        return gt % _LANES == 0 or gt == G
-
-    itemsize = jnp.dtype(dtype).itemsize
-
-    def _vmem_bytes(tl, tb_):
-        """Model of the kernel's VMEM footprint: scratch rows x tile
-        (sym body: precomputed r/A + the R per-row propagator blocks +
-        state; dense body: expanded y/diag + state), the streamed data
-        blocks, and the expansion matrix.  Calibrated against observed
-        v5e compiles: 11-12 MB configs compile, the 25.5 MB
-        (tile=B=6144) and 21 MB (tb=1024) ones OOM the 16 MB
-        scoped-vmem limit."""
-        gt = tl // repeats if grouped else 1
-        if sym:
-            scratch_rows = (R + 2) * tb_ + R_state + 2 * R + 9
-            stream = 3 * tb_ * gt
+    y = jnp.asarray(y, dtype=dtype)
+    diag = jnp.asarray(diag, dtype=dtype)
+    if y.ndim == 1 and diag.ndim == 1:
+        mode = "shared"
+    else:
+        if y.ndim == 1:
+            y = jnp.broadcast_to(y, diag.shape)
+        if diag.ndim == 1:
+            diag = jnp.broadcast_to(diag, y.shape)
+        G = y.shape[0]
+        if G == B:
+            mode, repeats = "element", 1
+        elif G * repeats == B:
+            mode = "grouped"
         else:
-            scratch_rows = 2 * tb_ + R_state + 2 * R + 9
-            stream = 2 * tb_ * gt + tb_
-        e_rows = 8 if (grouped and gt == tl) else (gt if grouped else 1)
-        return (scratch_rows * tl + stream + e_rows * tl) * itemsize
+            raise ValueError("y batch dim must be B or B // repeats")
+    # time-major data: lane b reads column b // repeats of row n, so a
+    # warp's gather touches neighbouring addresses
+    if mode != "shared":
+        y, diag = y.T, diag.T
+    t = jnp.asarray(t, dtype=jnp.result_type(t, jnp.float32))
+    N = t.shape[0]
+    dt = jnp.diff(t, prepend=t[:1]).astype(dtype)  # small gaps: safe to cast
 
-    _VMEM_BUDGET = 13 * 1024 * 1024
+    block, num_warps = launch_config(B)
+    n_blocks = -(-B // block)
+    b_pad = n_blocks * block
 
-    t64 = jnp.asarray(t)
-    N = t64.shape[0]
-    tb_pref = min(time_block, N)
-    tb_pref -= tb_pref % 8 or 0
-    tb_pref = max(tb_pref, 8)
-
-    def _fits(tl, tb_):
-        return _tile_ok(tl) and (interpret or _vmem_bytes(tl, tb_) <= _VMEM_BUDGET)
-
-    def _pick_tile(tb_):
-        tl = min(tile, B)
-        while tl >= _LANES:
-            if _fits(tl, tb_):
-                return tl
-            tl //= 2
-        if grouped:
-            # group-aligned tiles (repeats * 128 * m) — the valid shapes
-            # when repeats is not a power of two (e.g. 12 walkers ->
-            # repeats 6: halving 2048 never reaches the legal 768)
-            base = repeats * _LANES
-            for m in range(min(tile, B) // max(base, 1), 0, -1):
-                cand = base * m
-                if cand <= B and _fits(cand, tb_):
-                    return cand
-        # last resort: one tile spanning the whole batch (gt == G is
-        # always legal); covers ragged chunk remainders like
-        # G = 272, half = 8 -> B = 2176 with no 128-aligned divisor
-        if _fits(B, tb_):
-            return B
-        return None
-
-    # Prefer a large batch tile over a large time block: the tile
-    # amortizes the serial loop across more batch elements (measured
-    # 2048/tb128 ~ 2048/tb256 >> 1024/tb256), so scan tb downward and
-    # keep the config with the largest tile (largest tb on ties).
-    tb_cands, _c = [], tb_pref
-    while True:
-        tb_cands.append(_c)
-        if _c <= 8:
-            break
-        _c = max(8, (_c // 2) - ((_c // 2) % 8))
-    chosen, tb = None, tb_pref
-    for tb_c in tb_cands:
-        cand = _pick_tile(tb_c)
-        if cand is not None and (chosen is None or cand > chosen):
-            chosen, tb = cand, tb_c
-            if cand >= min(tile, B):
-                break
-    if chosen is None:
-        raise ValueError(
-            "no valid tile: need tile | B and, for grouped data, "
-            "repeats | tile with tile/repeats a multiple of 128 (or == G), "
-            "within the VMEM budget"
-        )
-    tile = chosen
-    g_tile = tile // repeats if grouped else 1
-    n_blocks = -(-N // tb)
-    n_pad = n_blocks * tb
-    needs_mask = n_pad != N
-
-    dt_full = jnp.diff(t64, prepend=t64[:1]).astype(dtype)
-    dt = jnp.zeros((n_pad,), dtype=dtype).at[:N].set(dt_full).reshape(n_pad, 1)
-
-    def pad_series(x, fill):
+    def lanes(x):
+        """(B,) per-lane vector, edge-padded to the block multiple."""
         x = jnp.asarray(x, dtype=dtype)
-        if grouped:
-            xp = jnp.full((x.shape[0], n_pad), fill, dtype=dtype).at[:, :N].set(x)
-            return xp.T  # (n_pad, G)
-        xp = jnp.full((n_pad,), fill, dtype=dtype).at[:N].set(x)
-        return xp.reshape(n_pad, 1)
+        return jnp.pad(x, (0, b_pad - B), mode="edge") if b_pad != B else x
 
-    y2 = pad_series(y, 0.0)
-    d2 = pad_series(diag, 1.0)
-    identity_fill = grouped and g_tile == tile
-    if identity_fill:
-        # the kernel never reads E on the identity path — a dummy keeps
-        # the (g_tile, tile) = (tile, tile) matrix out of VMEM
-        E = jnp.zeros((8, tile), dtype=dtype)
-    elif grouped:
-        eye = jnp.eye(g_tile, dtype=dtype)
-        E = jnp.repeat(eye, repeats, axis=1)  # (g_tile, tile)
-    else:
-        E = jnp.ones((1, tile), dtype=dtype)  # lane broadcast
-    if mean is None:
-        mean = jnp.zeros((B,), dtype=dtype)
-    mean2 = jnp.asarray(mean, dtype=dtype).reshape(1, B)
-    if extra_diag is None:
-        extra_diag = jnp.zeros((B,), dtype=dtype)
-    jit2 = jnp.asarray(extra_diag, dtype=dtype).reshape(1, B)
+    rows = [ar[:, i] for i in range(Jr)] + [cr[:, i] for i in range(Jr)]
+    for c in (ac, bc, cc, dc):
+        rows += [c[:, k] for k in range(Jc)]
+    lane_args = [lanes(r) for r in rows] + [lanes(mean), lanes(extra_diag)]
 
-    def bspec_coeff(j):
-        return pl.BlockSpec((max(j, 1), tile), lambda i, jb: (0, i), memory_space=pltpu.VMEM)
-
-    def bspec_series(width):
-        return pl.BlockSpec((tb, width), lambda i, jb: (jb, 0 if width == 1 else i), memory_space=pltpu.VMEM)
-
-    make = _make_kernel_sym if sym else _make_kernel
-    if sym:
-        # carry the recursion state through the fori loop (vregs) when
-        # it fits the register file; R=3 at tile 2048 is 19 carries x 2
-        # vregs = 38 live vregs (+8% measured), R=6 at tile 2048 would
-        # be 80 -> spill, keep it in scratch there
-        nS_ = R * (R + 1) // 2
-        n_carry = nS_ + 2 * R + 7
-        # tile=128 carries are single-vreg rows, which SIGABRT the
-        # Mosaic compiler for the real-terms-only (Jc=0) body — gate
-        # carry to tile >= 256 (probe shapes stay on the scratch form)
-        use_carry = tile >= 256 and n_carry * max(tile // 1024, 1) <= 48
-        kernel = make(
-            Jr, Jc, N, n_blocks, tb, dtype, tile, grouped, needs_mask, g_tile,
-            unroll=unroll, carry=use_carry,
-        )
-    else:
-        kernel = make(Jr, Jc, N, n_blocks, tb, dtype, tile, grouped, needs_mask, g_tile)
-    grid = (B // tile, n_blocks)
-
-    if sym:
-        # the sym body precomputes whole-block propagators from a WIDE
-        # dt (one (n_pad, g_tile) block column shared by every tile);
-        # per-row scratch holds r = y - mean, A = diag + k0 and the R
-        # propagator row blocks instead of raw y/diag
-        gw = max(g_tile, 1)
-        dt_arg = jnp.broadcast_to(dt, (n_pad, gw))
-        dt_spec = pl.BlockSpec((tb, gw), lambda i, jb: (jb, 0), memory_space=pltpu.VMEM)
-        data_scratch = [
-            pltpu.VMEM((tb, tile), dtype),      # r = y - mean
-            pltpu.VMEM((tb, tile), dtype),      # A = diag + k0
-            pltpu.VMEM((R * tb, tile), dtype),  # propagator rows
-        ]
-    else:
-        dt_arg = dt
-        dt_spec = bspec_series(1)
-        data_scratch = [
-            pltpu.VMEM((tb, tile), dtype),  # expanded y
-            pltpu.VMEM((tb, tile), dtype),  # expanded diag
-        ]
-
-    call = pl.pallas_call(
+    whole = pl.BlockSpec(memory_space=pl.ANY)
+    per_lane = pl.BlockSpec((block,), lambda i: (i,))
+    kernel = _make_kernel(Jr, Jc, N, mode, repeats, B, dtype, block)
+    out = pl.pallas_call(
         kernel,
-        out_shape=jax.ShapeDtypeStruct((1, B), dtype),
-        grid=grid,
-        in_specs=[
-            dt_spec,  # dt (wide for the sym body, narrow for the dense)
-            bspec_series(g_tile if grouped else 1),  # y
-            bspec_series(g_tile if grouped else 1),  # diag
-            bspec_coeff(Jr),
-            bspec_coeff(Jr),
-            bspec_coeff(Jc),
-            bspec_coeff(Jc),
-            bspec_coeff(Jc),
-            bspec_coeff(Jc),
-            pl.BlockSpec((1, tile), lambda i, jb: (0, i), memory_space=pltpu.VMEM),  # mean
-            pl.BlockSpec((1, tile), lambda i, jb: (0, i), memory_space=pltpu.VMEM),  # jitter
-            pl.BlockSpec(E.shape, lambda i, jb: (0, 0), memory_space=pltpu.VMEM),  # expansion
-        ],
-        out_specs=pl.BlockSpec((1, tile), lambda i, jb: (0, i), memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((R_state, tile), dtype),
-            pltpu.VMEM((R, tile), dtype),
-            pltpu.VMEM((R, tile), dtype),
-            pltpu.VMEM((8, tile), dtype),
-        ]
-        + data_scratch,
+        out_shape=jax.ShapeDtypeStruct((b_pad,), dtype),
+        grid=(n_blocks,),
+        in_specs=[whole, whole, whole] + [per_lane] * len(lane_args),
+        out_specs=per_lane,
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps, num_stages=1),
         interpret=interpret,
-    )
-
-    args = (
-        dt_arg,
-        y2,
-        d2,
-        _pad_j(ar.T, Jr, B, dtype),
-        _pad_j(cr.T, Jr, B, dtype),
-        _pad_j(ac.T, Jc, B, dtype),
-        _pad_j(bc.T, Jc, B, dtype),
-        _pad_j(cc.T, Jc, B, dtype),
-        _pad_j(dc.T, Jc, B, dtype),
-        mean2,
-        jit2,
-        E,
-    )
-
-    # Mosaic rejects the i64 grid scalars that global-x64 tracing makes
-    if dtype == jnp.float32:
-        with jax.enable_x64(False):
-            out = call(*args)
-    else:
-        out = call(*args)
-    return out[0]
-
-
-def _pad_j(x, j, b, dtype):
-    """Ensure a (J, B) array exists even when J == 0 (1-row dummy)."""
-    if j == 0:
-        return jnp.zeros((1, b), dtype=dtype)
-    return x
+        name="celerite_loglike",
+    )(dt, y, diag, *lane_args)
+    return out[:B]

@@ -1,4 +1,4 @@
-"""Device-mesh utilities: sharding batch axes across TPU chips."""
+"""Device-mesh utilities: sharding batch axes across devices."""
 from mind_the_gaps_tpu.parallel.mesh import (
     default_mesh,
     shard_batch,

@@ -1,12 +1,12 @@
-"""Lomb-Scargle periodogram, TPU-native.
+"""Lomb-Scargle periodogram on device.
 
 The reference's workflow and notebooks (docs/workflow.md step 1,
 lomb_scargle_biases.ipynb) use astropy's LombScargle / nifty-ls for the
 initial frequency-domain look at the data.  Here the generalized
 (floating-mean) Lomb-Scargle of Zechmeister & Kuerster (2009) is written
-as dense trig matrices contracted on the MXU: all frequencies evaluate
-as a handful of (F, N) x (N,) matmuls, which is the right shape for TPU
-(and trivially vmaps over batches of lightcurves).
+as dense trig matrices: all frequencies evaluate as a handful of
+(F, N) x (N,) contractions (and trivially vmap over batches of
+lightcurves).
 """
 from __future__ import annotations
 

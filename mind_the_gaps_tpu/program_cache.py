@@ -2,8 +2,7 @@
 
 The persistent XLA compilation cache removes backend COMPILES from warm
 starts, but every process still pays the Python TRACE of each program
-(~1-2 s each; the 10k LRT lowers ~9 programs at entry, ~10-13 s of its
-warm wall-clock).  ``jax.export`` serializes a traced program to a
+(the 10k LRT lowers ~9 programs at entry).  ``jax.export`` serializes a traced program to a
 StableHLO artifact that later processes can deserialize in ~0 s and
 compile straight from — skipping tracing entirely, and making the
 compilation-cache key trivially stable (the artifact bytes on disk are
@@ -14,13 +13,15 @@ the current source would trace, so the key includes a fingerprint of
 the package's own source files (content hash — any edit to the package
 invalidates every artifact), the jax/jaxlib versions, the default
 backend, the x64 flag, and a caller-supplied signature (program name +
-shapes/dtypes/static config).  Artifacts live next to the XLA cache
-(``~/.cache/mind_the_gaps_tpu/programs``); ``MTG_TPU_NO_PROGRAM_CACHE=1``
+shapes/dtypes/static config).  Artifacts live beside the XLA compile
+cache: under ``$JAX_COMPILATION_CACHE_DIR/programs`` when that is set,
+else in the checkout's ``.cache/programs``; ``MTG_TPU_NO_PROGRAM_CACHE=1``
 disables the tier, ``MTG_TPU_PROGRAM_CACHE=<dir>`` relocates it.
 
-Scope: single-device programs replay as-is.  Multi-device (mesh)
-programs are supported with two twists (round 4 — pod-ready warm
-start): the artifact key additionally carries the device context
+Scope: XLA programs only — ``jax.export`` refuses the Triton custom
+call of the GPU kernel, so kernel programs are lowered directly by
+their callers.  Single-device programs replay as-is.  Multi-device
+(mesh) programs are supported with two twists: the artifact key additionally carries the device context
 (device count is already keyed; process count and device kinds are
 added), and typed PRNG-key arguments cross the export boundary as raw
 ``key_data`` — replaying a serialized module that recorded a sharding
@@ -68,14 +69,20 @@ def _package_fingerprint() -> str:
 
 
 def program_cache_dir() -> Optional[str]:
+    """Artifact directory: ``MTG_TPU_PROGRAM_CACHE``, else beside the
+    compile cache (``$JAX_COMPILATION_CACHE_DIR/programs``), else the
+    checkout's ``.cache/programs``; None when the tier is disabled."""
     if os.environ.get("MTG_TPU_NO_PROGRAM_CACHE"):
         return None
     d = os.environ.get("MTG_TPU_PROGRAM_CACHE")
-    if not d:
-        d = os.path.join(
-            os.path.expanduser("~"), ".cache", "mind_the_gaps_tpu", "programs"
-        )
-    return d
+    if d:
+        return d
+    jax_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if jax_dir:
+        return os.path.join(jax_dir, "programs")
+    from mind_the_gaps_tpu import CACHE_ROOT
+
+    return os.path.join(CACHE_ROOT, "programs")
 
 
 def _artifact_path(signature: str) -> Optional[str]:
@@ -240,9 +247,9 @@ def lower_via_cache(signature: str, jit_fn, args, static_kwargs=None):
     Any export/deserialize/replay failure falls back to a plain
     ``.lower()``.
 
-    Multi-device processes are supported (round 4): the artifact key
-    carries the device context (count/process count/kinds — an 8-chip
-    pod process never loads a single-chip artifact), and typed PRNG-key
+    Multi-device processes are supported: the artifact key carries the
+    device context (count/process count/kinds — an 8-device process
+    never loads a single-device artifact), and typed PRNG-key
     arguments are rewritten to raw ``key_data`` across the export
     boundary (replaying a recorded rank-0 key sharding fails MLIR
     verification under a mesh).  Callers must put the mesh topology in

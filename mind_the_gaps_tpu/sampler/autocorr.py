@@ -30,8 +30,8 @@ def _next_pow_two(n: int) -> int:
 def autocorr_function(x):
     """Normalized autocorrelation of a 1-D series via FFT.
 
-    Computed in float32: TPU FFTs support complex64 only, and tau
-    estimation needs no more precision.
+    Computed in float32 (complex64 FFTs): tau estimation needs no more
+    precision.
     """
     n = x.shape[0]
     m = 2 * _next_pow_two(n)
@@ -105,9 +105,7 @@ def integrated_autocorr_time_masked(chain_buf, n_valid, c: float = 5.0):
     m = 2 * _next_pow_two(s)
     f = jnp.fft.fft(x, n=m, axis=0)
     # the whole tau pipeline stays float32: the estimate drives a
-    # convergence heuristic, and an f64 cumsum over (s, d) takes ~110 s
-    # to compile through the TPU f64 emulation (measured; f32 is 0.6 s)
-    # — it was the bulk of the per-kernel segment-program compile
+    # convergence heuristic and needs no more precision
     acf = jnp.fft.ifft(f * jnp.conj(f), axis=0)[:s].real
     norm = acf[:1]
     dead = ~(norm > 0)  # constant (stuck) walkers: treat as fully correlated
@@ -135,8 +133,7 @@ def integrated_autocorr_time(chain, c: float = 5.0):
 
     def per_param(x):  # x: (n, w)
         rho = jax.vmap(autocorr_function, in_axes=1, out_axes=1)(x)  # (n, w)
-        # f32 cumsum: see integrated_autocorr_time_masked (f64 emulation
-        # makes this one op dominate the TPU compile)
+        # f32 cumsum: see integrated_autocorr_time_masked
         f = jnp.mean(rho, axis=1).astype(jnp.float32)
         taus = (2.0 * jnp.cumsum(f) - 1.0).astype(x.dtype)
         m = jnp.arange(n)

@@ -9,8 +9,8 @@ the stretch proposal
     Y = X_j + z (X_k - X_j),  accept with prob min(1, z^(d-1) e^(dlogp))
 
 but expressed as a ``lax.scan`` over steps whose body evaluates the
-log-probability of *half the ensemble at once* (vmap), so on TPU each
-MCMC step is one batched likelihood kernel.  vmap over an outer batch
+log-probability of *half the ensemble at once* (vmap), so each MCMC
+step is one batched likelihood kernel.  vmap over an outer batch
 axis runs thousands of independent ensembles (one per bootstrap
 lightcurve) in lock-step — the design replacing the reference's process
 pool.
@@ -106,9 +106,9 @@ def sample_ensemble_grouped(key, log_prob_fn, initial_state, n_steps, a=2.0):
     initial_state: (C, W, D).  Each ensemble proposes only within its own
     complementary halves (identical statistics to ``C`` separate
     sample_ensemble runs), but every half-update evaluates ONE
-    (C*W/2, D) batched log-probability — on TPU the extra chains ride
-    the 128-lane kernel batch that a single small ensemble would waste
-    on padding, so C ensembles cost the same wall-clock as one.
+    (C*W/2, D) batched log-probability — the likelihood kernel's time
+    per step is set by the serial recursion, not the lane count, so the
+    extra chains cost little wall-clock.
 
     log_prob_fn: (B, D) -> (B,) for any B (the instance log-prob
     batchers pad internally).

@@ -1,6 +1,6 @@
 """Lightcurve simulation engine: TK95 / E13 with observational noise.
 
-TPU-first rebuild of reference mind_the_gaps/simulator.py +
+Device rebuild of reference mind_the_gaps/simulator.py +
 noise_models.py: frequency-domain draws and PDF adjustment are batched
 on-device FFTs; resampling onto the observing windows is a precomputed
 static-index segment-mean; noise models are vectorized jax.random draws

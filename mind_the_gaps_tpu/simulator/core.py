@@ -70,10 +70,8 @@ def tk95_rates(key, psd_values, n_fft: int, dt: float):
     nf = n_fft // 2 + 1
     re, im = jax.random.normal(key, (2, nf), dtype=psd_values.dtype)
     amp = jnp.sqrt(0.5 * psd_values)
-    # FFT in complex64: TPU FFTs do not support c128 (and the x64
-    # rewriter cannot even form c128 intermediates), so build the
-    # complex spectrum from f32 parts; the draw is statistical and f32
-    # spectral precision is ample.
+    # FFT in complex64: build the complex spectrum from f32 parts; the
+    # draw is statistical and f32 spectral precision is ample.
     re32 = (re[1:] * amp[1:]).astype(jnp.float32)
     im32 = (im[1:] * amp[1:]).astype(jnp.float32)
     fft = jax.lax.complex(re32, im32)
@@ -88,8 +86,7 @@ def tk95_rates(key, psd_values, n_fft: int, dt: float):
 def _apply_rank_permutation(order, sorted_draws):
     """``out[order[i]] = sorted_draws[i]`` without a scatter: sorting
     the permutation as integer keys applies its inverse to the payload
-    (bit-identical; the same trick the loop's remap uses, where the
-    scatter measured 2.6 ms vs 0.24 ms for the key-sort at m=8192)."""
+    (bit-identical; the same trick the loop's remap uses)."""
     _, out = jax.lax.sort_key_val(order, sorted_draws, dimension=-1)
     return out
 
@@ -106,17 +103,13 @@ def e13_adjust(key, segment_rates, pdf: str, mean, max_iter: int, std=None, rtol
     namp = m // 2 + 1
     sample_std = jnp.std(segment_rates) if std is None else std
     xsim = sample_pdf(key, pdf, mean, sample_std, (m,))
-    # FFTs/sorts run in f32 (TPU supports c64 FFTs only, and f32 sorts
-    # are the loop's hot op).  The spectrum provides phases and the
-    # ORDERING; the output values are always a permutation of the
-    # original full-precision draws.
+    # FFTs/sorts run in f32 (c64 FFTs, and f32 sorts are the loop's hot
+    # op).  The spectrum provides phases and the ORDERING; the output
+    # values are always a permutation of the original full-precision
+    # draws.
     amplitudes_norm = jnp.abs(jnp.fft.rfft(segment_rates.astype(jnp.float32))) / namp
     # every iterate is a permutation of the initial draw, so its sorted
     # values are loop constants: one argsort per iteration, not two.
-    # (A two-f32-key lexicographic form of this f64 sort — head +
-    # emulation residual, exact on TPU — measured a WASH on chip, 21.9
-    # vs 21.7 ms at (128, 65536): the sort is HBM-bound, not
-    # comparator-bound.  benchmarks/experiments/e13_outofloop_fix.py.)
     sorted_draws = -jnp.sort(-xsim)
     sorted_draws32 = sorted_draws.astype(jnp.float32)
 
@@ -125,9 +118,8 @@ def e13_adjust(key, segment_rates, pdf: str, mean, max_iter: int, std=None, rtol
         adj = jnp.fft.irfft(amplitudes_norm * jnp.exp(1j * phases), n=m)
         order = jnp.argsort(-adj)
         # rank-order remap WITHOUT a scatter: sorting the permutation as
-        # keys applies its inverse to the payload.  TPU-measured (m=8192,
-        # chunk=128): the scatter costs 2.6 ms/iteration, the extra sort
-        # 0.24 ms (the remap output is bit-identical).
+        # keys applies its inverse to the payload (bit-identical to the
+        # scatter).
         _, xnew = jax.lax.sort_key_val(order, sorted_draws32)
         return xnew, order
 
@@ -148,103 +140,6 @@ def e13_adjust(key, segment_rates, pdf: str, mean, max_iter: int, std=None, rtol
         not_converged, body, (x0, xadj, order, 0)
     )
     # apply the final permutation to the full-precision draws
-    out = _apply_rank_permutation(order, sorted_draws)
-    return out, iters
-
-
-def e13_adjust_batch(keys, segments, pdf: str, mean, max_iter: int,
-                     rtol=1e-4, atol=1e-8, sort_impl: str = "xla",
-                     interpret: bool = False):
-    """Batched Emmanoulopoulos+2013 adjustment over a (Bc, m) chunk.
-
-    Same math as ``e13_adjust`` row-for-row, but the lock-step loop is
-    an EXPLICIT batched ``while_loop`` (per-row freeze masking, exactly
-    the semantics ``vmap`` gives a per-row ``while_loop``) so the
-    rank-order remap can run as whole-chunk sorts.  With
-    ``sort_impl="xla"`` the result is bit-identical to
-    ``vmap(e13_adjust)`` (tested); ``sort_impl="pallas"`` routes the
-    remap through the HBM-tiled bitonic kernel (ops/pallas_sort.py) —
-    measured 1.8x over XLA's sort at the production (128, 65536) shape,
-    where the remap sorts are 84% of per-iteration cost.  The bitonic
-    network is unstable, so pallas results can differ from XLA at tied
-    f32 keys (statistically immaterial; both paths are individually
-    deterministic).
-
-    keys: (Bc,) PRNG keys; segments: (Bc, m).  Bc must be a multiple of
-    128 for the pallas path.  Returns (adjusted (Bc, m) f64, iters (Bc,)).
-    """
-    Bc, m = segments.shape
-    namp = m // 2 + 1
-    sample_std = jnp.std(segments, axis=-1)
-    xsim = jax.vmap(lambda k, s: sample_pdf(k, pdf, mean, s, (m,)))(keys, sample_std)
-    amplitudes_norm = jnp.abs(jnp.fft.rfft(segments.astype(jnp.float32), axis=-1)) / namp
-    sorted_draws = -jnp.sort(-xsim, axis=-1)
-    sorted_draws32 = sorted_draws.astype(jnp.float32)
-
-    if sort_impl == "pallas":
-        from mind_the_gaps_tpu.ops.pallas_sort import bitonic_remap_t
-
-        # the sorts run in the kernel's native (m, Bc) layout: only the
-        # spectral-step input/output transposes remain per iteration
-        # (bitonic_sort_kv's per-call transposes measured ~3.8 ms of the
-        # 9.48 ms sort at (128, 65536)); the sorted draws are a loop
-        # constant hoisted out of the while_loop, and both remap sorts
-        # run in ONE kernel dispatch (bitonic_remap_t)
-        sorted_draws32T = sorted_draws32.T
-
-        def remap(adj):
-            # rank-order remap as two fused kv-sorts (see e13_adjust):
-            # exact in f32 — the row-index payload and the permutation
-            # keys are integers < 2^24
-            permT, xnewT = bitonic_remap_t(-adj.T, sorted_draws32T, interpret=interpret)
-            return xnewT.T, permT
-
-        # order is carried through the loop as (m, Bc) f32 (permT)
-        freeze_order = lambda a, new, old: jnp.where(a[None, :], new, old)  # noqa: E731
-        order_final = lambda o: o.T.astype(jnp.int32)  # noqa: E731
-    else:
-
-        def remap(adj):
-            order = jnp.argsort(-adj, axis=-1)
-            _, xnew = jax.lax.sort_key_val(order, sorted_draws32, dimension=-1)
-            return xnew, order
-
-        freeze_order = lambda a, new, old: jnp.where(a[:, None], new, old)  # noqa: E731
-        order_final = lambda o: o  # noqa: E731
-
-    def spectral_step(x32):
-        phases = jnp.angle(jnp.fft.rfft(x32, axis=-1))
-        adj = jnp.fft.irfft(amplitudes_norm * jnp.exp(1j * phases), n=m, axis=-1)
-        return remap(adj)
-
-    x0 = xsim.astype(jnp.float32)
-    xadj, order = spectral_step(x0)
-
-    def cond(state):
-        return jnp.any(state[-1])
-
-    def body(state):
-        xprev, xadj, order, it, active = state
-        xnew, order_new = spectral_step(xadj)
-        # freeze finished rows (vmap-of-while_loop semantics)
-        a = active[:, None]
-        xprev_n = jnp.where(a, xadj, xprev)
-        xadj_n = jnp.where(a, xnew, xadj)
-        order_n = freeze_order(active, order_new, order)
-        it_n = jnp.where(active, it + 1, it)
-        close = jnp.all(
-            jnp.abs(xadj_n - xprev_n) <= atol + rtol * jnp.abs(xprev_n), axis=-1
-        )
-        active_n = jnp.logical_and(active, jnp.logical_not(close))
-        active_n = jnp.logical_and(active_n, it_n < max_iter)
-        return xprev_n, xadj_n, order_n, it_n, active_n
-
-    close0 = jnp.all(jnp.abs(xadj - x0) <= atol + rtol * jnp.abs(x0), axis=-1)
-    active0 = jnp.logical_and(jnp.logical_not(close0), jnp.zeros((Bc,), jnp.int32) < max_iter)
-    _, xadj, order, iters, _ = jax.lax.while_loop(
-        cond, body, (x0, xadj, order, jnp.zeros((Bc,), jnp.int32), active0)
-    )
-    order = order_final(order)
     out = _apply_rank_permutation(order, sorted_draws)
     return out, iters
 
@@ -407,11 +302,11 @@ class Simulator:
         self.sim_timestamps = np.arange(
             start_time - self.sim_dt, start_time + duration + self.sim_dt, self.sim_dt
         )
-        # Extend the fine grid to the next 5-smooth length: XLA's TPU FFT
-        # handles small prime factors (Bluestein), but a length with a
-        # LARGE prime factor falls back to a dense DFT matmul — observed
-        # at n_fft = 99449 = 7 x 14207 as a 40 GB f32[n_fft, n_fft]
-        # allocation at compile time.  A slightly longer grid only
+        # Extend the fine grid to the next 5-smooth length: FFT libraries
+        # are fast for small prime factors, while a length with a LARGE
+        # prime factor can fall back to a dense O(n^2) transform (one
+        # compiler turned n_fft = 99449 = 7 x 14207 into a 40 GB
+        # f32[n_fft, n_fft] DFT matrix).  A slightly longer grid only
         # increases the effective extension factor (the reference's own
         # arange is approximate, simulator.py:217-238).
         from scipy.fft import next_fast_len
@@ -498,9 +393,8 @@ class Simulator:
         max_iter = self.max_iter
 
         # E13 fast path: cut a power-of-two window when the fine grid is
-        # long enough — the E13 loop's rfft/irfft then hit the cheap
-        # radix-2 TPU FFT instead of Bluestein (~2x the loop cost at the
-        # tutorial's m=6586).  The downsample windows only index the
+        # long enough — the E13 loop's rfft/irfft then take the radix-2
+        # path instead of Bluestein.  The downsample windows only index the
         # first m samples, and the process is stationary, so adjusting
         # the slightly longer cut is statistically identical to the
         # reference's exact-m cut (simulator.py:536-539).
@@ -531,7 +425,7 @@ class Simulator:
         # the non-Gaussian pipeline also returns the E13 iteration count so
         # callers can surface non-convergence (the reference warns per
         # lightcurve, simulator.py:126-127; the batched path otherwise
-        # clamped at max_iter silently — VERDICT r4 weak #6)
+        # clamped at max_iter silently)
         def pipeline(key, psd_values, mean_v):
             k_pdf, segment = cut_segment(key, psd_values, mean_v)
             if gaussian:
@@ -541,29 +435,9 @@ class Simulator:
 
         self._cut_segment_fn = cut_segment
         self._starts_j, self._ends_j = starts, ends
-        self._chunk_pipeline = None  # built lazily (pallas E13 path)
         self._nonconv_fn = None  # jitted non-convergence accumulator
         self._nonconv_total = None  # device scalar, fetched by report_nonconverged
         return jax.jit(pipeline)
-
-    def _build_chunk_pipeline(self, sort_impl: str):
-        """Chunk-level E13 program: (Bc,) keys + (Bc, n_freq) PSDs ->
-        (Bc, n_times) rates, with the rank-order remap as whole-chunk
-        sorts (``e13_adjust_batch``).  ``sort_impl="pallas"`` uses the
-        HBM-tiled bitonic kernel — the production big-segment path."""
-        cut = self._cut_segment_fn
-        starts, ends = self._starts_j, self._ends_j
-        pdf = self.pdf.lower()
-        max_iter = self.max_iter
-
-        def chunk_pipeline(keys, psd_b, mean_v):
-            k_pdfs, segments = jax.vmap(cut, in_axes=(0, 0, None))(keys, psd_b, mean_v)
-            adj, iters = e13_adjust_batch(
-                k_pdfs, segments, pdf, mean_v, max_iter, sort_impl=sort_impl
-            )
-            return downsample_cumsum(adj, starts, ends), iters
-
-        return jax.jit(chunk_pipeline)
 
     def _psd_values(self):
         """Evaluate the PSD callable at the simulation frequencies.
@@ -624,15 +498,12 @@ class Simulator:
     def _e13_chunk_default(self) -> int:
         """Lock-step chunk width for the E13 batch, by cut length.
 
-        Measured on a v5e chip (benchmarks/experiments/
-        e13_periter_probe.py, round 4): wider chunks win at SMALL cut
-        lengths (dispatch-bound — +8% at m=8192 going 128->512, the
-        extra lock-step iterations cost less than the saved dispatches)
-        and lose at LARGE ones (the sorts saturate the chip, so the
-        higher lock-step max is pure waste: -11% at m=65536 going
-        128->512).  ~4M resident elements per chunk is the measured
-        sweet spot; the f64-sort crash guard that pinned 128 is obsolete
-        (the loop has been f32 end to end since round 5).
+        Wider chunks amortize dispatch at SMALL cut lengths, where the
+        extra lock-step iterations (the loop runs to the chunk's slowest
+        row) cost less than the saved dispatches; at LARGE cut lengths
+        the FFTs and sorts fill the device and the higher lock-step
+        maximum is pure waste.  Policy: ~4M resident elements per chunk,
+        clamped to [128, 512].  Not yet tuned on a GPU.
         """
         m = max(int(getattr(self, "_e13_cut_len", 0) or self._segment_len), 1)
         return int(max(128, min(512, 1 << int(math.log2(max(4_194_304 // m, 1))))))
@@ -687,21 +558,16 @@ class Simulator:
         program independent of the dataset's flux level.
 
         Non-Gaussian PDFs run the E13 while-loop in lock-step across each
-        chunk; ``chunk=None`` picks the measured-best width for the cut
-        length (``_e13_chunk_default``).  The E13 cut is padded to a
-        power of two so the loop's FFTs are radix-2 instead of Bluestein
-        (measured 227 vs 72 lcs/s at the tutorial's m=6586 on a v5e
-        chip; round 4 re-measured the alternatives — a 5-smooth cut is
-        3.3x SLOWER than pow2 at m=6750 vs 8192, and the raw Bluestein
-        length at m=64941 crashed the TPU worker —
-        benchmarks/experiments/e13_cutlen_probe.py).
+        chunk (vmap of the per-row loop; rows that converge freeze);
+        ``chunk=None`` picks the width from the cut length
+        (``_e13_chunk_default``).  The E13 cut is padded to a power of
+        two so the loop's FFTs are radix-2 instead of Bluestein.
 
         A two-phase "straggler compaction" variant (bounded first pass,
-        compacted rerun of non-converged lightcurves) was built and
-        measured in round 2: it LOSES to this single-phase path on this
-        runtime because every phase-1 chunk forces a host sync and the
-        E13 iteration spread is not heavy-tailed (most lightcurves
-        converge within ~2x the median).  Removed in round 3.
+        compacted rerun of non-converged lightcurves) lost to this
+        single-phase path: every phase-1 chunk forces a host sync, and
+        the E13 iteration spread is not heavy-tailed (most lightcurves
+        converge within ~2x the median).
         """
         if chunk is None:
             chunk = self._e13_chunk_default()
@@ -713,47 +579,6 @@ class Simulator:
         if gaussian:
             return vpipe(keys, psd_values_batch, mean_v)
 
-        # Pallas remap path: at big cut lengths XLA's sort is HBM-bound
-        # at ~one pass per bitonic stage and dominates the E13 iteration
-        # (84% at m=65536); the HBM-tiled bitonic measured 1.8x.  Gated
-        # to TPU + m_cut > 8192 (at VMEM-resident sizes XLA's sort is at
-        # its dispatch floor and the vmapped loop stays) + chunk % 128
-        # (the kernel's lane-tile contract).  Compile-scoped fallback:
-        # a Mosaic failure on the first chunk reverts to the XLA path.
-        use_pallas = (
-            jax.default_backend() == "tpu"
-            and getattr(self, "_e13_cut_len", 0) > 8192
-            and chunk % 128 == 0
-        )
-        if use_pallas:
-            if self._chunk_pipeline is None:
-                self._chunk_pipeline = self._build_chunk_pipeline("pallas")
-            outs = []
-            nonconv0 = self._nonconv_total
-            try:
-                for start in range(0, B, chunk):
-                    nb = min(chunk, B - start)
-                    if nb == chunk:
-                        idx = np.arange(start, start + chunk)
-                    else:
-                        # ragged last chunk: pad to the full chunk width
-                        # (one compiled program) with repeated rows,
-                        # sliced off below
-                        idx = start + np.minimum(np.arange(chunk), nb - 1)
-                    out, iters = self._chunk_pipeline(keys[idx], psd_values_batch[idx], mean_v)
-                    self._accum_nonconv(iters, nb)
-                    outs.append(out[:nb])
-                if warn_nonconverged:
-                    self.report_nonconverged()
-                # which E13 implementation actually ran (introspection:
-                # the production-scale calibration asserts the Pallas
-                # remap really engaged instead of assuming the gate)
-                self._last_batch_impl = "pallas"
-                return jnp.concatenate(outs, axis=0)
-            except Exception:
-                self._chunk_pipeline = None
-                self._nonconv_total = nonconv0  # drop partial counts
-                # fall through to the XLA vmapped path
         outs = []
         for start in range(0, B, chunk):
             out, iters = vpipe(
@@ -763,45 +588,7 @@ class Simulator:
             outs.append(out)
         if warn_nonconverged:
             self.report_nonconverged()
-        self._last_batch_impl = "xla"
         return jnp.concatenate(outs, axis=0)
-
-    def precompile_batch(self, executor, chunk: Union[int, None] = None):
-        """Start the E13 chunk program's backend compile on ``executor``.
-
-        The lock-step chunk program is the one LARGE compile of the
-        non-Gaussian generation path; without this it compiled serially
-        on the first bootstrap chunk, AFTER the observed fits (measured:
-        a cold lognormal 10k LRT stalled ~158 s between "observed fits
-        done" and the first chunk dispatch — benchmarks/lrt_10k.py
-        --pdf Lognormal, 2026-08-19).  Lowers on the CALLER's thread —
-        concurrent tracing makes persistent-cache keys irreproducible
-        (see the lrt.py entry notes) — and submits only the backend
-        compile; the runtime jit dispatch re-traces and hits the warm
-        cache.  No-op (returns None) for Gaussian PDFs or when the
-        Pallas chunk path is gated off (``simulate_batch`` then runs
-        the per-row vmapped program instead).
-        """
-        if self.pdf.lower() == "gaussian":
-            return None
-        if chunk is None:
-            chunk = self._e13_chunk_default()
-        if not (
-            jax.default_backend() == "tpu"
-            and getattr(self, "_e13_cut_len", 0) > 8192
-            and chunk % 128 == 0
-        ):
-            return None
-        if self._chunk_pipeline is None:
-            self._chunk_pipeline = self._build_chunk_pipeline("pallas")
-        keys_aval = jax.eval_shape(lambda: jax.random.split(jax.random.key(0), chunk))
-        psd_aval = jax.ShapeDtypeStruct((chunk, self._omega.shape[0]), jnp.float64)
-        mean_aval = jax.ShapeDtypeStruct((), jnp.float64)
-        try:
-            lowered = self._chunk_pipeline.lower(keys_aval, psd_aval, mean_aval)
-        except Exception:
-            return None
-        return executor.submit(lowered.compile)
 
     def add_noise_batch(self, key, rates_batch):
         keys = jax.random.split(key, rates_batch.shape[0])

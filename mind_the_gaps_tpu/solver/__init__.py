@@ -4,7 +4,7 @@
   the independent ground truth that the fast solver is validated against
   (same contract celerite itself is validated with).
 - ``semiseparable``: the O(N R^2) celerite factorization as a pure-JAX
-  ``lax.scan`` — jit/vmap/grad-compatible, batched across TPU cores.
+  ``lax.scan`` — jit/vmap/grad-compatible, batched across devices.
 """
 from mind_the_gaps_tpu.solver.dense import dense_log_likelihood, dense_covariance
 from mind_the_gaps_tpu.solver.kalman import (

@@ -1,13 +1,13 @@
-"""Batch-native celerite log-likelihood with TPU-friendly layout.
+"""Batch-native celerite log-likelihood (the XLA scan form).
 
-Design decisions versus the vmapped single-element scan
-(semiseparable.py), all driven by TPU microarchitecture:
+The portable batched solver and the reference the GPU kernel
+(ops/pallas_celerite.py) is tested against.  Design decisions versus the
+vmapped single-element scan (semiseparable.py):
 
-1. **Batch axis last.**  vmap-over-leading-batch maps each walker's tiny
-   R-vectors/R x R carries onto their own VPU tiles — a (4,) carry pads
-   to an (8,128) tile, so 4/1024 lanes do work.  Here every carry is
-   (R, B) / (R, R, B): the batch fills the 128-lane dimension and the
-   celerite rank R rides the sublanes (measured ~11x on a v5e chip).
+1. **Batch axis last.**  Every carry is (R, B) / (R, R, B): the batch is
+   the contiguous, vectorized dimension and the tiny celerite rank R the
+   outer one, so each scan step is a handful of wide elementwise ops
+   instead of many tiny per-walker ones.
 
 2. **Local-phase (rotation-propagator) form.**  The textbook celerite
    generators carry cos(d t_n)/sin(d t_n) with *absolute* times — at

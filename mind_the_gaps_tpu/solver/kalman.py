@@ -18,7 +18,7 @@ batch carries the parallelism; this module instead parallelizes over the
 five-tuple elements of Sarkka & Garcia-Fernandez (2021, "Temporal
 Parallelization of Bayesian Smoothers"), so one lightcurve's likelihood
 evaluates in O(log N) depth via ``jax.lax.associative_scan`` — the right
-tool for low-latency single fits and gradient evaluations on TPU.
+tool for low-latency single fits and gradient evaluations.
 
 Both a sequential reference filter and the parallel version are
 provided; both match the semiseparable solver at f64 parity levels.
@@ -147,10 +147,10 @@ def _filter_elements(Phi, Q, H, r, Rn, V):
 def _small_inv(M):
     """Batched inverse of small (p <= 6) matrices in closed form.
 
-    ``jnp.linalg.inv`` lowers to a batched LU that runs on the TPU's
-    scalar/vector units with poor occupancy; the celerite state dimension
-    is tiny (p = Jr + 2 Jc, typically 2-6), where the adjugate is exact
-    and maps to a handful of batched matmuls (MXU-friendly).  p = 1, 2
+    ``jnp.linalg.inv`` lowers to a batched LU with poor occupancy at
+    these sizes; the celerite state dimension is tiny (p = Jr + 2 Jc,
+    typically 2-6), where the adjugate is exact and maps to a handful of
+    batched matmuls.  p = 1, 2
     use the direct formulas; 3 <= p <= 6 uses the Faddeev-LeVerrier
     recursion (adjugate and determinant in p matrix products — fine
     numerically at these sizes, including float32); larger p falls back

@@ -14,15 +14,15 @@ express as ``jax.lax.scan`` over the time axis:
 
 - work-efficient O(N R^2) per likelihood, exactly what the hardware needs
   when the batch axis (walkers x bootstrap simulations) carries the
-  parallelism: each scan step is a fully-vectorized VPU op across the
+  parallelism: each scan step is a fully-vectorized op across the
   batch, so thousands of likelihoods advance in lock-step per time step.
 - reverse-mode differentiable out of the box (scan transposes to the
   O(N) adjoint recursion of the celerite backprop paper).
 
 Numerical notes:
-- float64 throughout (TPU emulates f64 on the VPU; all ops here are
-  elementwise/small-R contractions, no MXU needed) — required for the
-  1e-8 parity contract with celerite (BASELINE.md).
+- float64 throughout (all ops here are elementwise/small-R
+  contractions) — required for the 1e-8 parity contract with celerite
+  (BASELINE.md).
 - times are shifted by t[0] before building trig arguments: k depends
   only on differences, and small arguments keep cos/sin fully accurate.
 - a non-positive pivot D_n (covariance not PD for these parameters) makes
@@ -320,7 +320,7 @@ def _predict_tables(m: CeleriteMatrices, D, W, alpha):
     Psi_{p+1}; the backward scan propagates the ``inverse_diag`` H matrix
     together with C (the L^-1 H quadratic form) and the coupling J, which
     also yields B_p = -Psi_{p+1}^T J_p^T.  O(N R^3) total, O(R^2) per
-    query — replaces the M independent O(N R^2) solves (VERDICT r1 #5).
+    query — replaces the M independent O(N R^2) solves.
 
     Returns (A, B, C, g, h): arrays indexed by p = 0..N, shapes
     (N+1, R, R) x3 and (N+1, R) x2.

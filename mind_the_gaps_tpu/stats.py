@@ -6,7 +6,7 @@ Rebuild of reference mind_the_gaps/stats.py:10-195 with two tiers:
   API level (create_log_normal, create_uniform_distribution, kraft_pdf);
 - device tier (JAX): batched samplers and the Kraft posterior
   median/HPD-interval solved with regularized incomplete gamma functions +
-  fixed-iteration bisection, so thousands of noise draws vectorize on TPU
+  fixed-iteration bisection, so thousands of noise draws vectorize on device
   (the reference computes these in a per-bin Python loop,
   noise_models.py:140-146).
 """

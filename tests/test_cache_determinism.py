@@ -1,20 +1,18 @@
 """Persistent-compilation-cache key determinism across processes.
 
-Round-5 regression guard: tracing embeds global-order-dependent symbol
+Regression guard: tracing embeds global-order-dependent symbol
 names (e.g. ``log_prob_batch_fast_154``) in the lowered module, and the
 persistent compilation cache hashes the serialized module — so any
 program traced CONCURRENTLY with other tracing gets a cache key that
 never reproduces in another process.  Every "warm" LRT run silently
-recompiled all of its big programs (~25-40 s on the remote TPU runtime)
-until the entry precompiles were restructured to lower on the main
+recompiled all of its big programs until the entry precompiles were restructured to lower on the main
 thread in a fixed order and only compile on the pool.
 
 This test runs the full ``protassov_lrt`` entry twice in separate
 subprocesses against one shared cache directory (CPU backend,
 ``jax_persistent_cache_min_compile_time_secs=0`` so everything is
 persisted) and asserts the second run adds NO new entries for the
-pipeline's programs — the direct acceptance criterion measured on TPU
-(two identical lrt_10k runs: zero new entries).
+pipeline's programs (two identical runs: zero new entries).
 """
 from __future__ import annotations
 

@@ -1,10 +1,9 @@
-"""Policy test for the adaptive E13 lock-step chunk width (round 4).
+"""Policy test for the adaptive E13 lock-step chunk width.
 
-benchmarks/experiments/e13_periter_probe.py measured (v5e chip): wide
-chunks win at small cut lengths (dispatch-bound, +8% at m=8192 going
-128->512) and lose at large ones (-11% at m=65536), with ~4M resident
-elements the sweet spot.  ``Simulator._e13_chunk_default`` encodes that;
-this pins the policy so a refactor can't silently regress it.
+Wide chunks amortize dispatch at small cut lengths and waste lock-step
+iterations at large ones; ``Simulator._e13_chunk_default`` keeps ~4M
+resident elements per chunk, clamped to [128, 512].  This pins the
+policy so a refactor can't silently change it.
 """
 import numpy as np
 

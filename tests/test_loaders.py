@@ -253,7 +253,7 @@ def test_read_best_fit(tmp_path):
 
 
 def test_fastio_arrays_writable(tmp_path):
-    """Both parser tiers must return writable arrays (round-3 ADVICE):
+    """Both parser tiers must return writable arrays:
     np.frombuffer over the C extension's bytes would be read-only."""
     from mind_the_gaps_tpu.io import load_table
 

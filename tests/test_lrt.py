@@ -5,6 +5,7 @@ model), the observed T statistic should be unexceptional within the
 simulated T distribution (p-value not extreme), and the batched refits
 must produce finite max-loglikelihoods that beat the initial guess."""
 import numpy as np
+import pytest
 
 import jax
 
@@ -200,11 +201,10 @@ def test_early_stop_plateau_rule_loses_little():
     np.testing.assert_array_equal(lls_es, lls_es2)
 
 
-def test_pallas_fallback_warns_and_matches_xla():
-    """On a backend without Mosaic (CPU here) the Pallas path must fall
-    back to the XLA scan with a warning — a compile-time condition."""
-    import warnings
-
+def test_pallas_kernel_path_matches_xla(interpret_kernels):
+    """The kernel path (backend="pallas", run by the Pallas interpreter
+    here) drives the same chains as the XLA scan: same RNG stream, same
+    f32 likelihoods to rounding."""
     lc = _drw_lc(seed=3, n=120)
     kernel = DampedRandomWalk(log_S0=1.0, log_omega0=-3.0, bounds=[(-5, 10), (-8, 2)])
     rng = np.random.default_rng(5)
@@ -212,21 +212,47 @@ def test_pallas_fallback_warns_and_matches_xla():
     dys = np.full((2, lc.n), 0.3)
     theta0 = np.array([np.log(4.0), np.log(0.05)])
     common = dict(walkers=8, n_steps=50, use_mesh=False, dtype=np.float32)
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        lls_p, _ = fit_lightcurves_batch(
-            jax.random.key(2), kernel, lc.times, ys, dys, theta0, backend="pallas", **common
-        )
-    assert any("falling back to the XLA scan" in str(w.message) for w in rec)
-    lls_x, _ = fit_lightcurves_batch(
+    lls_p, xs_p = fit_lightcurves_batch(
+        jax.random.key(2), kernel, lc.times, ys, dys, theta0, backend="pallas", **common
+    )
+    lls_x, xs_x = fit_lightcurves_batch(
         jax.random.key(2), kernel, lc.times, ys, dys, theta0, backend="xla", **common
     )
-    np.testing.assert_allclose(lls_p, lls_x, rtol=1e-6)
+    np.testing.assert_allclose(lls_p, lls_x, rtol=1e-5)
+    np.testing.assert_allclose(xs_p, xs_x, rtol=1e-4, atol=1e-4)
+
+
+def test_pallas_kernel_path_raises_off_gpu():
+    """Off a GPU the kernel path fails loudly: no silent switch to the
+    scan, and no automatic interpret mode."""
+    lc = _drw_lc(seed=3, n=40)
+    kernel = DampedRandomWalk(log_S0=1.0, log_omega0=-3.0, bounds=[(-5, 10), (-8, 2)])
+    theta0 = np.array([np.log(4.0), np.log(0.05)])
+    assert jax.default_backend() == "cpu"
+    with pytest.raises(Exception, match="(?i)interpret|cpu|triton|platform"):
+        fit_lightcurves_batch(
+            jax.random.key(2), kernel, lc.times, lc.y[None, :], lc.dy[None, :], theta0,
+            walkers=8, n_steps=5, use_mesh=False, dtype=np.float32, backend="pallas",
+        )
+
+
+def test_auto_backend_is_xla_off_gpu():
+    """backend="auto" reads ops.gpu_kernel_available(): the scan on CPU."""
+    from mind_the_gaps_tpu.lrt import _ChunkFitter
+    from mind_the_gaps_tpu.ops import gpu_kernel_available
+
+    lc = _drw_lc(seed=3, n=40)
+    kernel = DampedRandomWalk(log_S0=1.0, log_omega0=-3.0, bounds=[(-5, 10), (-8, 2)])
+    assert not gpu_kernel_available()
+    fitter = _ChunkFitter(kernel, lc.times, kernel.get_parameter_vector(), dtype=np.float32)
+    assert not fitter.use_pallas
+    with pytest.raises(ValueError, match="unknown backend"):
+        _ChunkFitter(kernel, lc.times, kernel.get_parameter_vector(), backend="mosaic")
 
 
 def test_runner_runtime_errors_propagate(monkeypatch):
-    """A non-compile error from the (successfully compiled) Pallas
-    runner must surface, not be silently retried on XLA."""
+    """An error from the (successfully compiled) kernel runner must
+    surface, not be silently retried on XLA."""
     import mind_the_gaps_tpu.lrt as lrt_mod
 
     class FakeLowered:

@@ -1,9 +1,9 @@
 """Exported-program cache (program_cache.py): write/load round-trip.
 
-The main test process runs with 8 virtual CPU devices, where the
-export tier is deliberately gated off (artifacts bake in the exporting
-process's device context) — so these tests drive it in single-device
-subprocesses, the configuration the TPU pipeline actually runs in.
+The main test process runs with 8 virtual CPU devices; these tests
+drive the tier in single-device subprocesses, the configuration of a
+one-card run.  The f64 XLA sampler segment is the exported program
+(kernel programs bypass the tier: ``jax.export`` refuses Triton calls).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ t = np.cumsum(rng.uniform(2.0, 8.0, 80))
 lc = GappyLightcurve(t, 10 + rng.normal(0, 1, 80), np.full(80, 0.3), exposures=1.0)
 gp = GPModelling(lc, DampedRandomWalk(log_S0=0.0, log_omega0=-3.0, bounds=[(-5, 10), (-8, 2)]))
 gp.derive_posteriors(fit=False, converge=False, max_steps=40, convergence_steps=20,
-                     walkers=8, seed=9, fast=True)
+                     walkers=8, seed=9, fast=False)
 print("MAXLL", gp.max_loglikelihood)
 """
 

@@ -123,7 +123,7 @@ def test_std_mean_and_variance_E13():
     # 4500-sample span x 64 sims (was 8500 x 100): the span still covers
     # ~220 bend timescales so the per-sim variance estimate is unbiased,
     # and the seeded margins are 0.23 (variance) / 0.00 (mean) vs the
-    # < 1-std assertion — measured 27 s vs 61 s (VERDICT r4 #7 trim)
+    # < 1-std assertion — measured 27 s vs 61 s
     timestamps = np.arange(0, 4500, dt)
     variance = 10
     psd_model = psd_models.BendingPowerlaw(S0=variance, omega0=np.exp(-3))
@@ -426,7 +426,7 @@ def test_powerspec_bendingpowerlaw_E13():
     # 0.2) and 64 sims: the fine grid still resolves the bend (omega0 =
     # 0.31 rad vs Nyquist 12.6) and the seeded recovery passes with
     # margin |mean - omega0| / std = 0.76 — measured 80 s vs 304 s on
-    # the CI host (VERDICT r4 #7 suite-runtime trim)
+    # the CI host
     simu = Simulator(
         psd_model, times, 0.5, 10, "Lognormal", extension_factor=1.0, aliasing_factor=2, max_iter=600
     )
@@ -499,12 +499,9 @@ class TestRegularlySampledLorentzian:
         assert abs(self.outputvariance - self.variance) < 0.02
 
 
-def test_precompile_batch_gating():
-    """Simulator.precompile_batch is the LRT entry hook that overlaps
-    the E13 chunk program's (large) compile with the observed fits; it
-    must be a clean no-op for Gaussian PDFs and whenever the Pallas
-    chunk path is gated off (non-TPU backends, small cuts), and the
-    non-Gaussian device generator must expose it as ``.precompile``."""
+def test_lognormal_generator_precompiles_psd_only():
+    """The non-Gaussian device generator's LRT entry hook compiles only
+    the batched PSD program (B given) and is a no-op without a batch."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mind_the_gaps_tpu import GappyLightcurve
@@ -512,94 +509,40 @@ def test_precompile_batch_gating():
     from mind_the_gaps_tpu.kernels import DampedRandomWalk
 
     timestamps = np.arange(0, 2000, 1.0)
-    psd_model = psd_models.BendingPowerlaw(S0=5.0, omega0=np.exp(-3))
+    rng = np.random.default_rng(3)
+    lc = GappyLightcurve(
+        timestamps, rng.normal(7.0, 1.0, len(timestamps)),
+        np.full(len(timestamps), 0.3), exposures=1.0,
+    )
+    model = GPModelling(lc, DampedRandomWalk(log_S0=1.0, log_omega0=-3.0))
+    gen = model.make_device_generator("Lognormal")
     with ThreadPoolExecutor(1) as ex:
-        for pdf in ("Gaussian", "Lognormal"):
-            simu = Simulator(
-                psd_model, timestamps, 1.0, 7.0, pdf, extension_factor=1.05,
-                aliasing_factor=1, random_state=42,
-            )
-            # CPU backend: the Pallas gate is off -> None, no side effects
-            assert simu.precompile_batch(ex) is None
-
-        rng = np.random.default_rng(3)
-        lc = GappyLightcurve(
-            timestamps, rng.normal(7.0, 1.0, len(timestamps)),
-            np.full(len(timestamps), 0.3), exposures=1.0,
-        )
-        model = GPModelling(lc, DampedRandomWalk(log_S0=1.0, log_omega0=-3.0))
-        gen = model.make_device_generator("Lognormal")
-        # same gate through the LRT hook: no chunk program to compile
-        # (B=None also skips the PSD lower) -> no futures submitted
         assert gen.precompile(ex) == []
+        futs = gen.precompile(ex, B=4)
+        assert len(futs) == 1
+        futs[0].result(timeout=300)
 
 
-def test_precompile_batch_positive_path(monkeypatch):
-    """The positive (TPU-gated) path: precompile_batch must compile the
-    SAME jit instance ``simulate_batch`` later dispatches, lowered at the
-    chunk width ``_e13_chunk_default`` picks — a chunk-default or aval
-    drift between the two would silently regress to a lazy compile
-    (ADVICE r4 #3).  The backend gate is monkeypatched and the pipeline
-    built with the XLA sort (CPU cannot lower Mosaic) — the Mosaic
-    kernel itself is covered by the on-chip gate (tests/test_tpu_onchip)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from mind_the_gaps_tpu.simulator import core as score
-
-    times = np.arange(0, 9000, 1.0)
+def test_simulate_batch_lognormal_chunks_match_one_chunk():
+    """E13 generation in several lock-step chunks (ragged last chunk)
+    gives the rows that one whole-batch chunk gives: each row's loop
+    freezes on its own convergence test."""
+    times = np.arange(0, 600, 1.0)
     psd_model = psd_models.BendingPowerlaw(S0=5.0, omega0=np.exp(-3))
     simu = Simulator(
         psd_model, times, 1.0, 7.0, "Lognormal", extension_factor=1.05,
-        aliasing_factor=1, random_state=7, max_iter=3,
+        aliasing_factor=1, random_state=7,
     )
-    assert simu._e13_cut_len > 8192  # the gate's cut-length arm is real here
-
-    built, lowered_shapes, dispatches = [], [], []
-    orig_build = Simulator._build_chunk_pipeline
-
-    class PipeProxy:
-        def __init__(self, pipe):
-            self._pipe = pipe
-
-        def __call__(self, *a):
-            dispatches.append(tuple(x.shape for x in a[:2]))
-            return self._pipe(*a)
-
-        def lower(self, *avals):
-            lowered_shapes.append(tuple(a.shape for a in avals[:2]))
-            return self._pipe.lower(*avals)
-
-    def fake_build(self, sort_impl):
-        built.append(sort_impl)
-        return PipeProxy(orig_build(self, "xla"))
-
-    monkeypatch.setattr(Simulator, "_build_chunk_pipeline", fake_build)
-    monkeypatch.setattr(score.jax, "default_backend", lambda: "tpu")
-
-    with ThreadPoolExecutor(1) as ex:
-        fut = simu.precompile_batch(ex)
-        assert fut is not None
-        fut.result(timeout=300)  # compile failure would raise here
-    pipe = simu._chunk_pipeline
-    assert pipe is not None and built == ["pallas"]
-    chunk = simu._e13_chunk_default()
-    assert len(lowered_shapes) == 1
-    assert lowered_shapes[0][0][0] == chunk  # keys aval leading dim
-    assert lowered_shapes[0][1] == (chunk, simu.omega.shape[0])
-
-    psd_b = np.tile(np.asarray(simu._psd_values())[None], (3, 1))
-    out = simu.simulate_batch(jax.random.key(0), psd_b, warn_nonconverged=False)
-    simu.report_nonconverged(warn=False)  # max_iter=3: expected non-converged
-    assert out.shape == (3, len(times))
-    # the dispatch reused the precompiled instance at EXACTLY the
-    # lowered shapes (ragged rows pad to the chunk width) and did not
-    # fall back / rebuild
-    assert simu._chunk_pipeline is pipe
-    assert dispatches == lowered_shapes
+    psd_b = np.tile(np.asarray(simu._psd_values())[None], (5, 1))
+    whole = np.asarray(simu.simulate_batch(jax.random.key(0), psd_b, chunk=8))
+    parts = np.asarray(simu.simulate_batch(jax.random.key(0), psd_b, chunk=2))
+    assert whole.shape == (5, len(times))
+    assert np.all(np.isfinite(whole)) and np.all(whole > 0)
+    np.testing.assert_allclose(parts, whole, rtol=1e-12)
 
 
 def test_simulate_batch_nonconvergence_diagnostic():
-    """VERDICT r4 weak #6 / ask #8: the batched E13 path must surface
+    """The batched E13 path must surface
     sims that hit max_iter (the reference warns per lightcurve,
     simulator.py:126-127) instead of clamping silently."""
     times = np.arange(0, 600, 1.0)
